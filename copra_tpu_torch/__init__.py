@@ -1,0 +1,50 @@
+"""copra-tpu ported to PyTorch and CUDA (NVIDIA Hopper).
+
+The second implementation of the linear-MPC engine in ``copra_tpu``, which
+stays the reference.  Ported so far: condensing, cost and constraint
+lowering, QP assembly, control plans and the accurate batched serving tick,
+whose ADMM iterations run in a hand-written CUDA kernel
+(``csrc/admm_box.cu``) on the GPU and in its plain PyTorch version on the
+CPU.  Names match the reference's.  Importing this package imports neither
+JAX nor ``copra_tpu``.
+"""
+
+from .autospan import span_matrix, span_vector
+from .constraints import (Constraint, ConstraintKind, ControlBoundConstraint,
+                          ControlConstraint, MixedConstraint,
+                          TrajectoryBoundConstraint, TrajectoryConstraint)
+from .costs import (ControlCost, CostFunction, MixedCost, SimpleControlCost,
+                    SimpleTrajectoryCost, TargetCost, TrajectoryCost)
+from .errors import (CopraError, DimensionError, InfeasibleProblemError,
+                     InitializationError, SolverError)
+from .mpc import HESSIAN_RIDGE, build_qp
+from .plan import (ControlPlan, auto_rho, make_control_plan, make_plan_step,
+                   make_seed_map, plan_qp, plan_trajectory, suggest_rho)
+from .qp.native import native_available, solve_qp_native
+from .qp.types import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
+                       STATUS_PRIMAL_INFEASIBLE, STATUS_SOLVED, DenseQP,
+                       QPSolution, SolverOptions, WarmStart)
+from .systems import (LTISystem, LTVSystem, Preview, condense, condense_lti,
+                      condense_ltv, lti_as_ltv, replay_dynamics)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "build_qp", "HESSIAN_RIDGE",
+    "ControlPlan", "make_control_plan", "make_plan_step", "make_seed_map",
+    "plan_qp", "plan_trajectory", "auto_rho", "suggest_rho",
+    "LTISystem", "LTVSystem", "Preview", "condense", "condense_lti",
+    "condense_ltv", "lti_as_ltv", "replay_dynamics",
+    "CostFunction", "TrajectoryCost", "SimpleTrajectoryCost", "TargetCost",
+    "ControlCost", "SimpleControlCost", "MixedCost",
+    "Constraint", "ConstraintKind", "TrajectoryConstraint",
+    "ControlConstraint", "MixedConstraint", "TrajectoryBoundConstraint",
+    "ControlBoundConstraint",
+    "DenseQP", "QPSolution", "SolverOptions", "WarmStart",
+    "STATUS_SOLVED", "STATUS_MAX_ITER", "STATUS_PRIMAL_INFEASIBLE",
+    "STATUS_DUAL_INFEASIBLE",
+    "native_available", "solve_qp_native",
+    "span_matrix", "span_vector",
+    "CopraError", "DimensionError", "InitializationError", "SolverError",
+    "InfeasibleProblemError",
+]

@@ -1,0 +1,41 @@
+"""Build the port's containers from numpy arrays (for example the leaves of
+a reference ``ControlPlan`` or system), so one problem can be fed to both
+implementations."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Union
+
+import numpy as np
+import torch
+
+from .plan import ControlPlan
+from .systems import LTISystem, LTVSystem
+
+_STATIC = ("xdim", "udim", "horizon")
+
+
+def _tensor(v, device) -> torch.Tensor:
+    return torch.tensor(np.array(v), device=device)
+
+
+def plan_from_numpy(fields: Mapping[str, np.ndarray],
+                    device="cpu") -> ControlPlan:
+    """``ControlPlan`` from a mapping of field name to array (the static
+    ``xdim``/``udim``/``horizon`` as integers), dtypes kept."""
+    kw = {}
+    for f in dataclasses.fields(ControlPlan):
+        v = fields[f.name]
+        kw[f.name] = int(v) if f.name in _STATIC else _tensor(v, device)
+    return ControlPlan(**kw)
+
+
+def system_from_numpy(fields: Mapping[str, np.ndarray], device="cpu"
+                      ) -> Union[LTISystem, LTVSystem]:
+    """``LTISystem`` when ``fields`` has a ``horizon``, else ``LTVSystem``;
+    fields ``A``, ``B``, ``d``, ``x0`` (batch dimensions allowed)."""
+    arrays = {k: _tensor(fields[k], device) for k in ("A", "B", "d", "x0")}
+    if "horizon" in fields:
+        return LTISystem(horizon=int(fields["horizon"]), **arrays)
+    return LTVSystem(**arrays)
