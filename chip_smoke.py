@@ -1,21 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``copra_tpu_torch``) on one GPU.
 
-Drives the port's main path once through its public API at the full width
-of BASELINE config 4, the fleet of ``bench.py``: B = 4096 randomized LTV
-point-mass lanes, horizon N = 100 (100 decision variables each), a binding
-+-60 control bound, 30 ADMM iterations, 1 round, 20 timed ticks of drifting
-x0 after 2 warm-up ticks.  Phases, one line each:
+Drives the port's main paths through their public APIs at full width.
+Phases, one line or more each:
 
 1. the device, and ``nvidia-smi``'s name and power limit;
-2. the build of ``copra_tpu_torch/csrc/admm_box.cu`` with nvcc;
-3. the kernel against its plain PyTorch version on the card, in all three
-   modes, on the real config-4 operators (2e-4 absolute after 30 f32
-   iterations, the reference's own kernel tolerance), with both times;
-4. the plan build, ``auto_rho`` and the serving ticks: solves/s, device
-   ms per tick, kernel launches, converged share, and the served controls
-   of lanes 0, 1, 17 and 4095 against the native f64 oracle (<= 1e-5, the
-   library's accuracy contract).
+2. the build of every ``copra_tpu_torch/csrc/*.cu`` with nvcc, one process
+   each, all started together;
+3. the box-ADMM kernel against its plain PyTorch version on the card, in
+   all three modes, on the real config-4 operators (2e-4 absolute after 30
+   f32 iterations, the reference's own kernel tolerance), with both times;
+4. BASELINE config 4, the fleet of ``bench.py`` (B = 4096 randomized LTV
+   point-mass lanes, N = 100, a binding +-60 control bound, 30 ADMM
+   iterations, 1 round, 20 timed ticks of drifting x0 after 2 warm-up
+   ticks): the plan build, ``auto_rho`` and the serving ticks: solves/s,
+   device ms per tick, kernel launches, converged share, and the served
+   controls of lanes 0, 1, 17 and 4095 against the native f64 oracle
+   (<= 1e-5, the library's accuracy contract);
+5. the stagewise tick kernel against its plain version on the card, both
+   entry points, on the config-5 and config-6 serving plans from a warm
+   tuple of the serving path: float64 within 1e-9 (the reference's
+   fused-vs-XLA tolerance), float32 within 1e-4 x max(1, max |plain|),
+   with both times (the plain version timed once);
+6. config 6 (``bench_all.py``'s SRB quadruped: x = u = r = 12, N = 40,
+   128 robots, equilibrated by ``stagewise_scales``, eps_abs 1e-4, rho
+   0.1, 300 cold and 50 warm iterations with a 200-iteration top-up)
+   served through ``make_stagewise_step(backend="fused")``: 2 warm-up and
+   7 timed ticks of drifting x0, host and device ms per tick, launches,
+   converged share, the status pass's time, and max_err_rel of lanes 0
+   and 127 against the native f64 oracle (<= 1e-4);
+7. config 5 (the bipedal ZMP preview of ``bench_all.py``: x = 3, u = 1,
+   two ZMP rows per stage, N = 300, 256 robots = 512 lanes, eps_abs 1e-6,
+   rho 1.0, 300 cold and 20 warm iterations with an 80-iteration top-up),
+   the same fields, gated on lanes 0 and 1.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, as does a
@@ -38,6 +55,19 @@ KERNEL_TOL = 2e-4
 ORACLE_TOL = 1e-5
 KERNEL_SOURCE = "copra_tpu_torch/csrc/admm_box.cu"
 REPLACES = "copra_tpu/ops/admm_kernel.py:601"
+
+# the stagewise serving paths (phases 5-7)
+STAGEWISE_SOURCE = "copra_tpu_torch/csrc/stagewise_tick.cu"
+STAGEWISE_REPLACES = {"fused_stagewise_tick":
+                      "copra_tpu/ops/stagewise_kernel.py:418",
+                      "fused_stagewise_tick_streamed":
+                      "copra_tpu/ops/stagewise_kernel.py:791"}
+F64_TOL = 1e-9        # kernel vs plain, float64
+F32_RTOL = 1e-4       # kernel vs plain, float32, times max(1, max |plain|)
+REL_TOL = 1e-4        # served controls vs the native oracle, relative
+WARMUP_TICKS, TIMED_TICKS = 2, 7
+QUAD_ROBOTS, QUAD_N = 128, 40
+ZMP_ROBOTS, ZMP_N, ZMP_T = 256, 300, 0.005
 
 
 def fail(msg: str):
@@ -222,6 +252,376 @@ def kernel_vs_plain(ak, step, plan, opts, x0_first):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The stagewise paths: data builders (numpy copies of the reference's
+# examples/bipedal_walking.py and bench_all.py builders; the card's host has
+# no JAX), the exact oracles, and phases 5-7.
+# ---------------------------------------------------------------------------
+
+GRAVITY = 9.81
+
+
+def lipm_system(T: float, com_height: float):
+    """Triple-integrator per-axis dynamics + ZMP output row
+    (``examples/bipedal_walking.py:lipm_system``)."""
+    A = np.array([[1.0, T, T * T / 2.0],
+                  [0.0, 1.0, T],
+                  [0.0, 0.0, 1.0]])
+    B = np.array([[T ** 3 / 6.0], [T * T / 2.0], [T]])
+    d = np.zeros(3)
+    zmp_row = np.array([[1.0, 0.0, -com_height / GRAVITY]])
+    return A, B, d, zmp_row
+
+
+def footstep_plan(n_steps: int, horizon: int, T: float,
+                  step_length: float = 0.2, step_width: float = 0.1,
+                  step_duration: float = 0.8, margin: float = 0.05):
+    """Reference ZMP and support-polygon bounds for axes (x, y), each
+    ``[2, horizon + 1]`` (``examples/bipedal_walking.py:footstep_plan``)."""
+    ticks = horizon + 1
+    per_step = int(round(step_duration / T))
+    ref = np.zeros((2, ticks))
+    for k in range(ticks):
+        idx = min(k // per_step, n_steps - 1)
+        ref[0, k] = idx * step_length
+        ref[1, k] = (step_width if idx % 2 else -step_width) \
+            if idx > 0 else 0.0
+    return ref, ref - margin, ref + margin
+
+
+def srb_quadruped(N: int = QUAD_N, dt: float = 0.025):
+    """Single-rigid-body quadruped MPC (``bench_all.py:_srb_quadruped``):
+    x = 12, u = 12 ground-reaction forces, r = 12 friction rows per stage,
+    LTV over the gait.  Returns the f32 fields of one robot's problem."""
+    m, g, mu, h = 25.0, 9.81, 0.6, 0.3
+    Ibinv = np.linalg.inv(np.diag([0.35, 1.2, 1.3]))
+    Ac = np.zeros((12, 12))
+    Ac[0:3, 6:9] = np.eye(3)
+    Ac[3:6, 9:12] = np.eye(3)
+    Ad = np.eye(12) + Ac * dt
+    feet0 = np.array([[0.22, 0.15, -h], [0.22, -0.15, -h],
+                      [-0.22, 0.15, -h], [-0.22, -0.15, -h]])
+    As, Bs = [], []
+    for k in range(N):
+        phase = 2 * np.pi * k / N
+        Bk = np.zeros((12, 12))
+        for leg in range(4):
+            r_i = feet0[leg] + np.array(
+                [0.04 * np.sin(phase + leg * np.pi / 2), 0.0, 0.0])
+            rx = np.array([[0, -r_i[2], r_i[1]],
+                           [r_i[2], 0, -r_i[0]],
+                           [-r_i[1], r_i[0], 0]])
+            Bk[6:9, 3 * leg:3 * leg + 3] = Ibinv @ rx * dt
+            Bk[9:12, 3 * leg:3 * leg + 3] = np.eye(3) / m * dt
+        As.append(Ad)
+        Bs.append(Bk)
+    dk = np.zeros(12)
+    dk[11] = -g * dt
+    x_ref = np.zeros(12)
+    x_ref[5] = h
+    x_ref[9] = 0.4
+    w = np.array([50.0, 50, 10, 10, 10, 100, 1, 1, 1, 5, 5, 5])
+    Qx = np.repeat(np.diag(w)[None], N + 1, 0)
+    Qx[-1] *= 10.0
+    qx = np.repeat((-w * x_ref)[None], N + 1, 0)
+    qx[-1] *= 10.0
+    xlb = np.full((N + 1, 12), -np.inf)
+    xub = np.full((N + 1, 12), np.inf)
+    xlb[:, 0:3], xub[:, 0:3] = -0.4, 0.4
+    xlb[:, 5], xub[:, 5] = 0.2, 0.4
+    Cu1 = np.zeros((12, 12))
+    for leg in range(4):
+        c0 = 3 * leg
+        Cu1[c0 + 0, c0 + 0], Cu1[c0 + 0, c0 + 2] = 1.0, -mu
+        Cu1[c0 + 1, c0 + 0], Cu1[c0 + 1, c0 + 2] = -1.0, -mu
+        Cu1[c0 + 2, c0 + 1], Cu1[c0 + 2, c0 + 2] = 1.0, -mu
+    x0 = x_ref.copy()
+    x0[9] = 0.0
+    fields = dict(
+        A=np.asarray(As), B=np.asarray(Bs), d=np.repeat(dk[None], N, 0),
+        Qx=Qx, qx=qx, Ru=np.repeat((1e-5 * np.eye(12))[None], N, 0),
+        ru=np.zeros((N, 12)), x0=x0, xlb=xlb, xub=xub,
+        ulb=np.tile(np.array([-150.0, -150.0, 0.0]), (N, 4)),
+        uub=np.tile(np.array([150.0, 150.0, 250.0]), (N, 4)),
+        Cx=np.zeros((N, 12, 12)), Cu=np.repeat(Cu1[None], N, 0),
+        clo=np.full((N, 12), -np.inf), chi=np.zeros((N, 12)))
+    return {k: v.astype(np.float32) for k, v in fields.items()}
+
+
+def stagewise_exact(tt, f):
+    """Exact f64 solution ``U [N, u]`` of one stagewise problem (numpy
+    fields ``f``): condensed in f64 and solved by the native active-set
+    oracle (``bench_all.py:_stagewise_exact_native``)."""
+    g = {k: (None if v is None else np.asarray(v, np.float64))
+         for k, v in f.items()}
+    A, B, d, x0 = g["A"], g["B"], g["d"], g["x0"]
+    N, x, u = A.shape[0], A.shape[1], B.shape[2]
+    nU = N * u
+    Psi = np.zeros((N + 1, x, nU))
+    xi = np.zeros((N + 1, x))
+    Phi = np.zeros((N + 1, x, x))
+    Phi[0] = np.eye(x)
+    for k in range(N):
+        Phi[k + 1] = A[k] @ Phi[k]
+        Psi[k + 1] = A[k] @ Psi[k]
+        Psi[k + 1][:, k * u:(k + 1) * u] += B[k]
+        xi[k + 1] = A[k] @ xi[k] + d[k]
+    xoff = Phi @ x0 + xi
+    Q = np.zeros((nU, nU))
+    c = np.zeros(nU)
+    for k in range(N + 1):
+        Q += Psi[k].T @ g["Qx"][k] @ Psi[k]
+        c += Psi[k].T @ (g["Qx"][k] @ xoff[k] + g["qx"][k])
+    for k in range(N):
+        sl = slice(k * u, (k + 1) * u)
+        Q[sl, sl] += g["Ru"][k]
+        c[sl] += g["ru"][k]
+    rows, lo_, hi_ = [], [], []
+    for k in range(1, N + 1):
+        for i in range(x):
+            if np.isfinite(g["xub"][k, i]) or np.isfinite(g["xlb"][k, i]):
+                rows.append(Psi[k][i])
+                lo_.append(g["xlb"][k, i] - xoff[k, i])
+                hi_.append(g["xub"][k, i] - xoff[k, i])
+    if g.get("Cx") is not None:
+        for k in range(N):
+            Crow = g["Cx"][k] @ Psi[k]
+            Crow[:, k * u:(k + 1) * u] += g["Cu"][k]
+            off = g["Cx"][k] @ xoff[k]
+            for j in range(g["Cx"].shape[1]):
+                rows.append(Crow[j])
+                lo_.append(g["clo"][k, j] - off[j])
+                hi_.append(g["chi"][k, j] - off[j])
+    Arows = np.asarray(rows) if rows else np.zeros((0, nU))
+    lo_, hi_ = np.asarray(lo_), np.asarray(hi_)
+    fin_lo, fin_hi = np.isfinite(lo_), np.isfinite(hi_)
+    qp = tt.DenseQP(Q=Q, c=c, Aeq=np.zeros((0, nU)), beq=np.zeros(0),
+                    Aineq=np.concatenate([Arows[fin_hi], -Arows[fin_lo]]),
+                    bineq=np.concatenate([hi_[fin_hi], -lo_[fin_lo]]),
+                    lb=g["ulb"].ravel(), ub=g["uub"].ravel())
+    return tt.solve_qp_native(qp).x.numpy().reshape(N, u)
+
+
+def zmp_exact(tt, A, B, d, zmp_row, ref_ax, lo_ax, hi_ax, x0,
+              zmp_w=1.0, jerk_w=1e-6, ridge=1e-6):
+    """Exact f64 controls ``U [N]`` of one ZMP axis: condensed in f64, ZMP
+    rows as inequality pairs, native active-set solve
+    (``bench_all.py:_zmp_exact``)."""
+    N = len(ref_ax) - 1
+    A = np.asarray(A, np.float64)
+    B = np.asarray(B, np.float64)[:, 0]
+    d = np.asarray(d, np.float64)
+    x = A.shape[0]
+    Phi = np.zeros((N + 1, x, x))
+    Psi = np.zeros((N + 1, x, N))
+    xi = np.zeros((N + 1, x))
+    Phi[0] = np.eye(x)
+    for k in range(1, N + 1):
+        Phi[k] = A @ Phi[k - 1]
+        Psi[k] = A @ Psi[k - 1]
+        Psi[k][:, k - 1] += B
+        xi[k] = A @ xi[k - 1] + d
+    z_row = np.asarray(zmp_row, np.float64).ravel()
+    Zphi = np.einsum("x,kxy->ky", z_row, Phi)
+    Zpsi = np.einsum("x,kxu->ku", z_row, Psi)
+    zoff = Zphi @ np.asarray(x0, np.float64) + xi @ z_row
+    Q = zmp_w * (Zpsi.T @ Zpsi) + (jerk_w + ridge) * np.eye(N)
+    c = zmp_w * (Zpsi.T @ (zoff - np.asarray(ref_ax, np.float64)))
+    qp = tt.DenseQP(
+        Q=Q, c=c, Aeq=np.zeros((0, N)), beq=np.zeros(0),
+        Aineq=np.concatenate([Zpsi, -Zpsi], axis=0),
+        bineq=np.concatenate([np.asarray(hi_ax, np.float64) - zoff,
+                              zoff - np.asarray(lo_ax, np.float64)]),
+        lb=np.full(N, -np.inf), ub=np.full(N, np.inf))
+    return tt.solve_qp_native(qp).x.numpy()
+
+
+def build_config6(tt, device):
+    """The config-6 fleet, its scales, options and drifting x0 sequence
+    (``bench_all.py:config6`` with rho and the warm budget passed as the
+    reference's measured policies chose them)."""
+    import torch
+    from copra_tpu_torch.qp.riccati import (StagewiseQP, make_stagewise_step,
+                                            stagewise_scales)
+
+    one = srb_quadruped()
+    rng = np.random.default_rng(11)
+    pert = rng.normal(scale=np.repeat([0.03, 0.01, 0.03, 0.05], 3),
+                      size=(QUAD_ROBOTS, 12))
+    x0s = (one["x0"].astype(np.float64)[None] + pert).astype(np.float32)
+    drift = np.cumsum(rng.normal(
+        scale=0.002, size=(WARMUP_TICKS + TIMED_TICKS + 10, QUAD_ROBOTS,
+                           12)), axis=0)
+    x0_seq = [(x0s.astype(np.float64) + drift[t]).astype(np.float32)
+              for t in range(WARMUP_TICKS + TIMED_TICKS)]
+    t0 = time.perf_counter()
+    ten = lambda a: torch.tensor(a, device=device)
+    sq1 = StagewiseQP(**{k: ten(v) for k, v in one.items()})
+    scales = stagewise_scales(sq1)
+    fleet = StagewiseQP(**{k: ten(np.repeat(v[None], QUAD_ROBOTS, 0))
+                           for k, v in one.items() if k != "x0"},
+                        x0=ten(x0s))
+    opts = tt.SolverOptions(max_iter=300, early_exit=False, polish=False,
+                            eps_abs=1e-4, rho=0.1)
+    wopts = opts.replace(max_iter=50, topup_iters=200)
+    tick = make_stagewise_step(fleet, wopts, cold_options=opts,
+                               backend="fused", scaling=scales)
+    torch.cuda.synchronize()
+    oracle = lambda lane, x0: stagewise_exact(
+        tt, dict(one, x0=x0.astype(np.float64)))
+    return dict(name="config 6", tick=tick, opts=wopts, scale=scales,
+                x0_seq=[ten(a) for a in x0_seq], x0_np=x0_seq,
+                lanes=(0, QUAD_ROBOTS - 1), oracle=oracle,
+                setup_s=time.perf_counter() - t0)
+
+
+def build_config5(tt, device):
+    """The config-5 fleet: both ZMP axes per robot through the port's
+    ``from_mpc`` (``bench_all.py:_bipedal_workload``/``axis_sqp``), its
+    options and drifting x0 sequence (``bench_all.py:config5``, fused
+    lines)."""
+    import torch
+    from copra_tpu_torch.qp.riccati import (from_mpc, make_stagewise_step,
+                                            stack_stagewise)
+
+    A, B, d, zmp_row = lipm_system(ZMP_T, 0.8)
+    ref, lo, hi = footstep_plan(4, ZMP_N, ZMP_T)
+    lanes = 2 * ZMP_ROBOTS
+    rng = np.random.default_rng(7)
+    x0_seq = [np.cumsum(rng.normal(scale=0.002, size=(t + 1, lanes, 3)),
+                        axis=0)[-1].astype(np.float32)
+              for t in range(WARMUP_TICKS + TIMED_TICKS)]
+    t0 = time.perf_counter()
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    Zfull = f32(np.kron(np.eye(ZMP_N + 1), zmp_row))
+    system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(np.zeros(3)),
+                                 ZMP_N)
+
+    def axis_sqp(ax):
+        costs = (tt.TrajectoryCost(M=Zfull, p=f32(ref[ax]),
+                                   weights=f32(np.ones(ZMP_N + 1))),
+                 tt.SimpleControlCost(p=f32(np.zeros(ZMP_N)),
+                                      weights=f32(np.full(ZMP_N, 1e-6))))
+        constraints = (tt.TrajectoryConstraint(E=Zfull, f=f32(hi[ax])),
+                       tt.TrajectoryConstraint(E=-Zfull, f=f32(-lo[ax])))
+        return from_mpc(system, costs, constraints)
+
+    fleet = stack_stagewise([axis_sqp(0), axis_sqp(1)], repeats=ZMP_ROBOTS)
+    opts = tt.SolverOptions(max_iter=300, early_exit=False, polish=False,
+                            eps_abs=1e-6, rho=1.0)
+    wopts = opts.replace(max_iter=20, topup_iters=80)
+    tick = make_stagewise_step(fleet, wopts, cold_options=opts,
+                               backend="fused")
+    torch.cuda.synchronize()
+    A32, B32, d32 = (np.asarray(a, np.float32) for a in (A, B, d))
+    oracle = lambda lane, x0: zmp_exact(
+        tt, A32, B32, d32, zmp_row, ref[lane % 2], lo[lane % 2],
+        hi[lane % 2], x0)[:, None]
+    return dict(name="config 5", tick=tick, opts=wopts, scale=None,
+                x0_seq=[f32(a) for a in x0_seq], x0_np=x0_seq,
+                lanes=(0, 1), oracle=oracle,
+                setup_s=time.perf_counter() - t0)
+
+
+def stagewise_vs_plain(sk, cfg):
+    """The tick kernel against its plain version on the served plan of
+    ``cfg``, from the warm tuple a cold serving tick delivers, with the
+    serving iteration count.  Returns ``(entry, f32 err, f32 bound, f64
+    err, f32 kernel ms, f32 plain ms, f64 kernel ms)``."""
+    import torch
+
+    tick, opts = cfg["tick"], cfg["opts"]
+    fp = tick._plans[tick._plan_key(opts)]
+    sqp = fp.sqp
+    N, x, u, r = sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows
+    x0 = cfg["x0_seq"][1]
+    if cfg["scale"] is not None:
+        x0 = x0 / cfg["scale"][0]
+    _, _, _, warm = tick(cfg["x0_seq"][0])
+    warm_t = sk._pack_warm(fp, *warm)
+    entry = (sk.fused_stagewise_tick if fp.mode == "resident"
+             else sk.fused_stagewise_tick_streamed)
+    kw = dict(n_iter=opts.max_iter, N=N, x=x, u=u, r=r,
+              sigma=opts.sigma, alpha=opts.alpha)
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        args = (fp.plan.to(dt), x0.mT.contiguous().to(dt), warm_t.to(dt))
+        got = entry(*args, **kw)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want = sk.stagewise_tick_plain(*args, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                fail(f"{entry.__name__} {dt}: bad output")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(1.0, max(float(w.abs().max()) for w in want))
+        out[dt] = (err, scale, ev[0].elapsed_time(ev[1]),
+                   _cuda_ms(lambda: entry(*args, **kw), 5))
+    err32, scale32, plain_ms, ms = out[torch.float32]
+    return (entry.__name__, err32, F32_RTOL * scale32, out[torch.float64][0],
+            ms, plain_ms, out[torch.float64][3])
+
+
+def serve_stagewise(sk, cfg):
+    """The served path: a cold tick, a warm one, then the timed ticks.
+    Returns the last controls, the converged share of the timed ticks,
+    host and device ms per tick, and the status pass's host and device
+    ms."""
+    import torch
+
+    tick, seq = cfg["tick"], cfg["x0_seq"]
+    X, U, info, warm = tick(seq[0])
+    for t in range(1, WARMUP_TICKS):
+        X, U, info, warm = tick(seq[t], warm)
+    converged = torch.zeros((), dtype=torch.int64, device=U.device)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    t0 = time.perf_counter()
+    for t in range(WARMUP_TICKS, WARMUP_TICKS + TIMED_TICKS):
+        X, U, info, warm = tick(seq[t], warm)
+        converged += (info.status == 0).sum()
+    ev[1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TIMED_TICKS
+    dev_ms = ev[0].elapsed_time(ev[1]) / TIMED_TICKS
+    share = float(converged) / (TIMED_TICKS * U.shape[0])
+
+    # the per-tick status pass (_lane_residuals) on its own
+    fp = tick._plans[tick._plan_key(cfg["opts"])]
+    Xs, Us = X, U
+    if cfg["scale"] is not None:
+        Xs, Us = X / cfg["scale"][0], U / cfg["scale"][1]
+    status = lambda: sk._lane_residuals(fp.sqp, cfg["opts"], fp.rho_x,
+                                        fp.rho_u, fp.rows, Xs, Us, *warm)
+    status()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev[0].record()
+    for _ in range(5):
+        status()
+    ev[1].record()
+    torch.cuda.synchronize()
+    status_host = (time.perf_counter() - t1) * 1e3 / 5
+    return U, share, host_ms, dev_ms, status_host, ev[0].elapsed_time(ev[1]) / 5
+
+
+def gate_stagewise(cfg, U):
+    """max |U - U_exact| / max |U_exact| over the gated lanes at the last
+    tick's x0."""
+    x0_last = cfg["x0_np"][-1]
+    err = scale = 0.0
+    for lane in cfg["lanes"]:
+        exact = cfg["oracle"](lane, x0_last[lane])
+        got = U[lane].double().cpu().numpy().reshape(exact.shape)
+        err = max(err, float(np.abs(got - exact).max()))
+        scale = max(scale, float(np.abs(exact).max()))
+    return err / scale, err
+
+
 def main() -> int:
     import torch
 
@@ -231,6 +631,13 @@ def main() -> int:
         return 2
     import copra_tpu_torch as tt
     from copra_tpu_torch.ops import admm_kernel as ak
+    from copra_tpu_torch.ops import build
+    from copra_tpu_torch.ops import stagewise_kernel as sk
+
+    def reset_counts():
+        for fn in (ak.fused_admm_box_lanes, ak.fused_admm_box,
+                   sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed):
+            fn.launches = 0
 
     # phase 1: device
     dev = torch.device("cuda", 0)
@@ -243,9 +650,12 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
     print(smi[0] if smi else "nvidia-smi: no output")
 
-    # phase 2: build the kernel from the checkout
-    path, secs = ak.build_kernel()
-    print(f"build: {KERNEL_SOURCE} -> {path} in {secs:.2f} s")
+    # phase 2: build every kernel from the checkout, in parallel
+    t0 = time.perf_counter()
+    for src, (path, secs) in build.build_all().items():
+        print(f"build: copra_tpu_torch/csrc/{src}.cu -> {path} in "
+              f"{secs:.2f} s")
+    print(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
 
     # plan and step (auto_rho runs the kernel on 8 probe lanes)
     plan, opts, step, x0_dev, setup_s = build_serving(tt, dev, BATCH,
@@ -264,9 +674,8 @@ def main() -> int:
         if held and not err <= KERNEL_TOL:
             fail(f"kernel mode {mode} disagrees with the plain version")
 
-    # phase 4: the main path
-    ak.fused_admm_box_lanes.launches = 0
-    ak.fused_admm_box.launches = 0
+    # phase 4: the config-4 main path
+    reset_counts()
     u, sol, share, host_ms, dev_ms = run_ticks(step, plan, x0_dev, TICKS)
     launches = ak.fused_admm_box_lanes.launches
     if tuple(u.shape) != (BATCH, HORIZON) or u.dtype != torch.float64 \
@@ -284,8 +693,7 @@ def main() -> int:
           f"on lanes {list(lanes)}")
     if not err <= ORACLE_TOL:
         fail(f"max_err_vs_exact {err:.3e} > {ORACLE_TOL}")
-
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_admm_box_lanes", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": launches,
@@ -293,7 +701,63 @@ def main() -> int:
                                                   "general")),
         # per tick the main path runs the x0 = 0 body and the Q x pass
         "ms": modes["x0_zero"][1] + modes["qx"][1],
-        "plain_ms": modes["x0_zero"][2] + modes["qx"][2]}]}))
+        "plain_ms": modes["x0_zero"][2] + modes["qx"][2]}]
+
+    # the stagewise serving facades (plans, gains and scales)
+    configs = []
+    for build_cfg in (build_config6, build_config5):
+        cfg = build_cfg(tt, dev)
+        print(f"setup: {cfg['name']}, {cfg['x0_seq'][0].shape[0]} lanes, "
+              f"plan in {cfg['setup_s']:.2f} s, rho={cfg['opts'].rho:g}, "
+              f"{cfg['opts'].max_iter} warm iterations (+"
+              f"{cfg['opts'].topup_iters} top-up)")
+        configs.append(cfg)
+
+    # phase 5: the stagewise kernel against its plain version
+    probe = {}
+    for cfg in configs:
+        entry, e32, b32, e64, ms, plain_ms, ms64 = stagewise_vs_plain(sk, cfg)
+        probe[entry] = (e32, ms, plain_ms)
+        print(f"kernel {entry} ({cfg['name']} plan, {cfg['opts'].max_iter} "
+              f"iterations): float64 max_abs_err {e64:.3e} (tol {F64_TOL}),"
+              f" float32 max_abs_err {e32:.3e} (tol {b32:.3e}); kernel "
+              f"{ms:.4f} ms (float64 {ms64:.4f} ms), plain {plain_ms:.1f} ms")
+        if not (e64 <= F64_TOL and e32 <= b32):
+            fail(f"{entry} disagrees with the plain version")
+
+    # phases 6 and 7: the served stagewise paths
+    for cfg in configs:
+        fp = cfg["tick"]._plans[cfg["tick"]._plan_key(cfg["opts"])]
+        entry = (sk.fused_stagewise_tick if fp.mode == "resident"
+                 else sk.fused_stagewise_tick_streamed)
+        reset_counts()
+        U, share, host_ms, dev_ms, st_host, st_dev = serve_stagewise(sk, cfg)
+        n = entry.launches
+        ticks = WARMUP_TICKS + TIMED_TICKS
+        if not bool(torch.isfinite(U).all()):
+            fail(f"{cfg['name']}: non-finite controls")
+        if n == 0:
+            fail(f"{cfg['name']}: the served path never launched "
+                 f"{entry.__name__}")
+        rel, err = gate_stagewise(cfg, U)
+        print(f"main path {cfg['name']}: {host_ms:.4f} host ms/tick, "
+              f"{dev_ms:.4f} device ms/tick (CUDA events), {n} "
+              f"{entry.__name__} launches over {ticks} ticks, converged "
+              f"share {share:.6f}; status pass {st_host:.3f} host ms, "
+              f"{st_dev:.3f} device ms per call; max_err_vs_exact "
+              f"{err:.3e}, max_err_rel {rel:.3e} on lanes "
+              f"{list(cfg['lanes'])}")
+        if not rel <= REL_TOL:
+            fail(f"{cfg['name']}: max_err_rel {rel:.3e} > {REL_TOL}")
+        e32, ms, plain_ms = probe[entry.__name__]
+        kernels.append({
+            "name": entry.__name__, "route": "cuda",
+            "source": STAGEWISE_SOURCE,
+            "replaces": STAGEWISE_REPLACES[entry.__name__],
+            "launches": n, "max_abs_err": e32, "ms": ms,
+            "plain_ms": plain_ms})
+
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

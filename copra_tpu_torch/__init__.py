@@ -4,8 +4,10 @@ The second implementation of the linear-MPC engine in ``copra_tpu``, which
 stays the reference.  Ported so far: condensing, cost and constraint
 lowering, QP assembly, control plans and the accurate batched serving tick,
 whose ADMM iterations run in a hand-written CUDA kernel
-(``csrc/admm_box.cu``) on the GPU and in its plain PyTorch version on the
-CPU.  Names match the reference's.  Importing this package imports neither
+(``csrc/admm_box.cu``), and the stagewise Riccati-in-ADMM engine with its
+serving tick, whose iterations run in a second one
+(``csrc/stagewise_tick.cu``).  On the CPU each kernel's plain PyTorch
+version runs instead.  Names match the reference's.  Importing this package imports neither
 JAX nor ``copra_tpu``.
 """
 
@@ -21,6 +23,9 @@ from .mpc import HESSIAN_RIDGE, build_qp
 from .plan import (ControlPlan, auto_rho, make_control_plan, make_plan_step,
                    make_seed_map, plan_qp, plan_trajectory, suggest_rho)
 from .qp.native import native_available, solve_qp_native
+from .qp.riccati import (StagewiseQP, lqr_solve, make_stagewise_step,
+                         scale_stagewise, solve_mpc_stagewise,
+                         solve_stagewise, stack_stagewise, stagewise_scales)
 from .qp.types import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
                        STATUS_PRIMAL_INFEASIBLE, STATUS_SOLVED, DenseQP,
                        QPSolution, SolverOptions, WarmStart)
@@ -44,6 +49,9 @@ __all__ = [
     "STATUS_SOLVED", "STATUS_MAX_ITER", "STATUS_PRIMAL_INFEASIBLE",
     "STATUS_DUAL_INFEASIBLE",
     "native_available", "solve_qp_native",
+    "StagewiseQP", "lqr_solve", "solve_stagewise", "solve_mpc_stagewise",
+    "make_stagewise_step", "stack_stagewise", "stagewise_scales",
+    "scale_stagewise",
     "span_matrix", "span_vector",
     "CopraError", "DimensionError", "InitializationError", "SolverError",
     "InfeasibleProblemError",

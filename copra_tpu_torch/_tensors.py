@@ -26,3 +26,13 @@ def common(*ts, device) -> tuple:
     take one dtype; the reference promotes f32 with f64 to f64)."""
     dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
     return tuple(t.to(device=device, dtype=dt) for t in ts)
+
+
+def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M @ v`` over the trailing dims, batch dims broadcast."""
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def matvec_t(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M' @ v`` over the trailing dims, batch dims broadcast."""
+    return (M.mT @ v.unsqueeze(-1)).squeeze(-1)

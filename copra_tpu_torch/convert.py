@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .plan import ControlPlan
+from .qp.riccati import StagewiseQP
 from .systems import LTISystem, LTVSystem
 
 _STATIC = ("xdim", "udim", "horizon")
@@ -39,3 +40,15 @@ def system_from_numpy(fields: Mapping[str, np.ndarray], device="cpu"
     if "horizon" in fields:
         return LTISystem(horizon=int(fields["horizon"]), **arrays)
     return LTVSystem(**arrays)
+
+
+def stagewise_from_numpy(fields: Mapping[str, np.ndarray],
+                         device="cpu") -> StagewiseQP:
+    """``StagewiseQP`` from a mapping of field name to array (the leaves of
+    a reference ``StagewiseQP``, single or batched), dtypes kept; the row
+    fields may be missing or ``None`` for a box-only problem."""
+    kw = {}
+    for f in dataclasses.fields(StagewiseQP):
+        v = fields.get(f.name)
+        kw[f.name] = None if v is None else _tensor(v, device)
+    return StagewiseQP(**kw)

@@ -29,22 +29,13 @@ tensor it launches the kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import Tuple
 
 import torch
 
-Tensor = torch.Tensor
+from .build import load_library
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_PKG_DIR, "csrc", "admm_box.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+Tensor = torch.Tensor
 
 # kernel modes (csrc/admm_box.cu)
 MODE_X0_ZERO = 1
@@ -117,44 +108,11 @@ def admm_box_plain(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor, u: Tensor,
     return x, y, z, g
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found (needed to build "
-                       f"{KERNEL_SOURCE}); put the CUDA toolkit on PATH")
-
-
-def build_kernel() -> Tuple[str, float]:
-    """Compile ``csrc/admm_box.cu`` into ``_build/`` unless a library of
-    the same source already exists.  Returns ``(path, seconds spent)``."""
-    with open(KERNEL_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libadmm_box_{digest}.so")
-    if os.path.exists(path):
-        return path, 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {KERNEL_SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return path, time.perf_counter() - t0
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    path, _ = build_kernel()
-    lib = ctypes.CDLL(path)
+    lib = load_library("admm_box")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.copra_admm_box.restype = i
     lib.copra_admm_box.argtypes = [p] * 12 + [i] * 5 + [f] * 6 + [p]

@@ -1,0 +1,611 @@
+"""Fused stagewise Riccati-in-ADMM tick: the plain PyTorch version, the
+wrappers of the hand-written CUDA kernel, and the host side that packs a
+:class:`~copra_tpu_torch.qp.riccati.StagewiseQP` for it.
+
+Port of ``copra_tpu/ops/stagewise_kernel.py``.  Two facts make a fused
+tick possible: the ridged stage Hessians are iteration-invariant, so the
+Riccati gains are computed once per plan (:func:`precompute_lqr_gains`)
+and each ADMM iteration runs only the linear backward and forward sweeps;
+and the whole fixed-count loop runs in one kernel that reads each stage's
+plan rows from device memory and keeps the sweep state in registers.
+
+:func:`fused_stagewise_tick` and :func:`fused_stagewise_tick_streamed`
+are the counterparts of the reference's resident and streamed Pallas
+entry points (``stagewise_kernel.py:418`` and ``:791``).  Both are served
+by one kernel, ``copra_tpu_torch/csrc/stagewise_tick.cu``, on one packed
+layout with the lane axis last: ``plan [N+1, C, B]``, ``warm [N+1, W,
+B]``, ``work [N+1, Kw, B]`` and ``x0 [x, B]`` (:class:`_Layout`).  The
+reference's resident/streamed split was a VMEM budget; here
+:func:`fused_mode` keeps only its component rule to choose the entry
+point.  Dropped as Mosaic layout machinery: ``_pad8``, ``LANES`` and the
+128-lane padding, the streamed mode's transposed forward copies, the
+VMEM budget and the ``COPRA_FUSED_*`` switches.
+
+:func:`stagewise_tick_plain` is the plain version: the same formulas in
+the same order (sums with the index ascending), batched over lanes, with
+Python loops over stages.  A wrapper takes it only for tensors on the CPU;
+on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from .._precision import highest_precision
+from .._tensors import matvec as _mv, matvec_t as _mtv
+from .build import load_library
+
+Tensor = torch.Tensor
+
+# (x, u, r) shapes the CUDA kernel is instantiated for (csrc/
+# stagewise_tick.cu): config 5 (ZMP preview), the resident test shape and
+# config 6 (quadruped); float32 and float64 each.
+KERNEL_SHAPES = ((3, 1, 2), (3, 2, 2), (12, 12, 12))
+
+_POLISH = ("options.polish_iters > 0 needs the df32 -> f64 polish, which "
+           "is not yet ported (ROADMAP item 8)")
+
+
+@dataclasses.dataclass(frozen=True)
+class LQRGains:
+    """Iteration-invariant Riccati operators: per stage ``k`` (with ``V =
+    V_{k+1}`` of the quadratic recursion) the feedback ``K [N, u, x]``,
+    the negated inverse inner Hessian ``nF = -F^{-1} [N, u, u]``, the
+    cross operator ``G = S' + B'VA [N, u, x]`` and the constant drift
+    terms ``bvd = B'Vd [N, u]``, ``avd = A'Vd [N, x]``."""
+
+    K: Tensor
+    nF: Tensor
+    G: Tensor
+    bvd: Tensor
+    avd: Tensor
+
+
+@highest_precision
+def precompute_lqr_gains(A: Tensor, B: Tensor, d: Tensor, Qx: Tensor,
+                         Ru: Tensor, S: Optional[Tensor] = None
+                         ) -> LQRGains:
+    """The quadratic Riccati backward recursion -> :class:`LQRGains` (the
+    recursion of ``lqr_solve`` restricted to the quadratic terms; leading
+    batch dims allowed).  Run once per plan."""
+    N, udim = A.shape[-3], B.shape[-1]
+    if S is None:
+        S = torch.zeros(A.shape[:-1] + (udim,), dtype=A.dtype,
+                        device=A.device)
+    eye = torch.eye(udim, dtype=A.dtype, device=A.device)
+    V = Qx[..., N, :, :]
+    K, nF, G, bvd, avd = ([None] * N for _ in range(5))
+    for k in range(N - 1, -1, -1):
+        A_k, B_k, d_k = A[..., k, :, :], B[..., k, :, :], d[..., k, :]
+        BtV = B_k.mT @ V
+        F = Ru[..., k, :, :] + BtV @ B_k
+        G[k] = S[..., k, :, :].mT + BtV @ A_k
+        Finv = torch.cholesky_solve(eye.expand(F.shape),
+                                    torch.linalg.cholesky(F))
+        K[k], nF[k] = -Finv @ G[k], -Finv
+        AtV = A_k.mT @ V
+        bvd[k], avd[k] = _mv(BtV, d_k), _mv(AtV, d_k)
+        V = Qx[..., k, :, :] + AtV @ A_k + G[k].mT @ K[k]
+        V = 0.5 * (V + V.mT)
+    return LQRGains(K=torch.stack(K, dim=-3), nF=torch.stack(nF, dim=-3),
+                    G=torch.stack(G, dim=-3), bvd=torch.stack(bvd, dim=-2),
+                    avd=torch.stack(avd, dim=-2))
+
+
+@highest_precision
+def lqr_solve_fixed(gains: LQRGains, A: Tensor, B: Tensor, d: Tensor,
+                    qx: Tensor, ru: Tensor, x0: Tensor
+                    ) -> Tuple[Tensor, Tensor]:
+    """Linear-terms-only LQ solve with precomputed gains: exactly
+    ``lqr_solve`` for the ``(Qx, Ru, S)`` the gains were built from.
+    Leading batch dims allowed; returns ``(X [N+1, x], U [N, u])``."""
+    N = A.shape[-3]
+    v = qx[..., N, :]
+    ks = [None] * N
+    for k in range(N - 1, -1, -1):
+        h = ru[..., k, :] + _mtv(B[..., k, :, :], v) + gains.bvd[..., k, :]
+        ks[k] = _mv(gains.nF[..., k, :, :], h)
+        v = (qx[..., k, :] + _mtv(A[..., k, :, :], v) + gains.avd[..., k, :]
+             + _mtv(gains.G[..., k, :, :], ks[k]))
+    X, U = [x0], []
+    for k in range(N):
+        U.append(_mv(gains.K[..., k, :, :], X[-1]) + ks[k])
+        X.append(_mv(A[..., k, :, :], X[-1]) + _mv(B[..., k, :, :], U[-1])
+                 + d[..., k, :])
+    return torch.stack(X, dim=-2), torch.stack(U, dim=-2)
+
+
+class _Layout:
+    """Row offsets of the packed tensors (mirrored by ``Layout`` in
+    ``csrc/stagewise_tick.cu``).
+
+    ``plan [N+1, C, B]`` per stage: ``A`` (row-major, ``A[i][j]`` at
+    ``A + i*x + j``), ``B``, ``d``, the gains ``K`` and ``nF``, the base
+    linear costs ``qb = qx + A'Vd`` and ``rb = ru + B'Vd`` (the gains'
+    constant drift terms folded in), the per-coordinate penalties ``rhox``
+    and ``rhou`` (0 where no finite bound), the bounds clamped to
+    ``finfo.max/4``, and with rows the normalized ``Cx``, ``Cu``, ``slo``,
+    ``shi`` and per-row penalties ``rhos``.  The terminal stage carries
+    only ``qb``, ``rhox`` and the state bounds.  ``warm [N+1, W, B]``:
+    zX yX | zU yU | zS yS.  ``work [N+1, Kw, B]``: X | U | kk.
+    """
+
+    def __init__(self, x: int, u: int, r: int):
+        self.x, self.u, self.r = x, u, r
+        off = 0
+
+        def take(n):
+            nonlocal off
+            o = off
+            off += n
+            return o
+
+        self.A = take(x * x)
+        self.B = take(x * u)
+        self.d = take(x)
+        self.K = take(u * x)
+        self.nF = take(u * u)
+        self.qb = take(x)
+        self.rb = take(u)
+        self.rhox = take(x)
+        self.rhou = take(u)
+        self.xlb = take(x)
+        self.xub = take(x)
+        self.ulb = take(u)
+        self.uub = take(u)
+        self.Cx = take(r * x)
+        self.Cu = take(r * u)
+        self.slo = take(r)
+        self.shi = take(r)
+        self.rhos = take(r)
+        self.C = off
+        self.zX, self.yX = 0, x
+        self.zU, self.yU = 2 * x, 2 * x + u
+        self.zS, self.yS = 2 * x + 2 * u, 2 * x + 2 * u + r
+        self.W = 2 * x + 2 * u + 2 * r
+        self.X, self.U, self.kk = 0, x, x + u
+        self.Kw = x + 2 * u
+
+
+def stagewise_tick_plain(plan: Tensor, x0: Tensor, warm: Tensor, *,
+                         n_iter: int, N: int, x: int, u: int, r: int,
+                         sigma: float, alpha: float
+                         ) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of one fixed-count tick on the packed tensors.
+
+    Each iteration: the backward sweep, stage ``N-1`` down to 0, shifts
+    the linear costs by the ADMM penalties and the proximal term and runs
+    ``h = rb + B'v``, ``kk = nF h``, ``v <- qs + A'v + K'h`` (``G'kk =
+    K'h``); the forward sweep rolls out ``u = kk + K x``, ``x <- d + A x +
+    B u`` and, stage by stage, relaxes by ``alpha``, projects ``x`` (stage
+    0 pinned to ``x0``), ``u`` and the rows and updates their duals; the
+    terminal state's projection comes last.  Returns ``(warm', work)``.
+    """
+    lo = _Layout(x, u, r)
+    oma = 1.0 - alpha
+    tiny = 1e-30
+    warm = warm.clone()
+    work = torch.zeros((N + 1, lo.Kw, plan.shape[-1]), dtype=plan.dtype,
+                       device=plan.device)
+    work[:, lo.X:lo.X + x] = warm[:, lo.zX:lo.zX + x]
+    work[:N, lo.U:lo.U + u] = warm[:N, lo.zU:lo.zU + u]
+
+    def rows(t, off, n):            # n consecutive rows of a stage
+        return t[off:off + n]
+
+    def col(t, off, j, n, stride):  # column j of a row-major [n, stride]
+        return t[off + j:off + n * stride:stride]
+
+    def shifted(p, w, wk, base, rho, z, y, var, n):
+        return (rows(p, base, n) - (rows(p, rho, n) * rows(w, z, n)
+                                    - rows(w, y, n))
+                - sigma * rows(wk, var, n))
+
+    def project(p, w, v, rho, lb, ub, z, y, n, pin=False):
+        rv = rows(p, rho, n)
+        vr = alpha * v + oma * rows(w, z, n)
+        yo = rows(w, y, n)
+        zn = torch.where(rv > 0, torch.clamp(vr + yo / rv.clamp_min(tiny),
+                                             rows(p, lb, n),
+                                             rows(p, ub, n)), vr)
+        if pin:                     # x_0 is data: pin its copy
+            zn = v
+        yn = yo + rv * (vr - zn)
+        w[z:z + n] = zn
+        w[y:y + n] = yn
+
+    for _ in range(int(n_iter)):
+        v = shifted(plan[N], warm[N], work[N], lo.qb, lo.rhox, lo.zX, lo.yX,
+                    lo.X, x)
+        for k in range(N - 1, -1, -1):
+            p, w, wk = plan[k], warm[k], work[k]
+            qs = shifted(p, w, wk, lo.qb, lo.rhox, lo.zX, lo.yX, lo.X, x)
+            hb = shifted(p, w, wk, lo.rb, lo.rhou, lo.zU, lo.yU, lo.U, u)
+            if r:
+                vS = rows(p, lo.rhos, r) * rows(w, lo.zS, r) \
+                    - rows(w, lo.yS, r)
+                for j in range(r):
+                    qs = qs - rows(p, lo.Cx + j * x, x) * vS[j]
+                    hb = hb - rows(p, lo.Cu + j * u, u) * vS[j]
+            h = hb
+            for i in range(x):
+                h = h + rows(p, lo.B + i * u, u) * v[i]
+            kk = col(p, lo.nF, 0, u, u) * h[0]
+            for b in range(1, u):
+                kk = kk + col(p, lo.nF, b, u, u) * h[b]
+            wk[lo.kk:lo.kk + u] = kk
+            vn = qs
+            for j in range(x):
+                vn = vn + rows(p, lo.A + j * x, x) * v[j]
+            for a in range(u):
+                vn = vn + rows(p, lo.K + a * x, x) * h[a]
+            v = vn
+
+        xs = x0
+        work[0, lo.X:lo.X + x] = xs
+        for k in range(N):
+            p, w, wk = plan[k], warm[k], work[k]
+            uk = rows(wk, lo.kk, u)
+            for i in range(x):
+                uk = uk + col(p, lo.K, i, u, x) * xs[i]
+            wk[lo.U:lo.U + u] = uk
+            project(p, w, xs, lo.rhox, lo.xlb, lo.xub, lo.zX, lo.yX, x,
+                    pin=k == 0)
+            project(p, w, uk, lo.rhou, lo.ulb, lo.uub, lo.zU, lo.yU, u)
+            if r:
+                s = col(p, lo.Cx, 0, r, x) * xs[0]
+                for i in range(1, x):
+                    s = s + col(p, lo.Cx, i, r, x) * xs[i]
+                for a in range(u):
+                    s = s + col(p, lo.Cu, a, r, u) * uk[a]
+                rs = rows(p, lo.rhos, r)
+                sr = alpha * s + oma * rows(w, lo.zS, r)
+                yo = rows(w, lo.yS, r)
+                zn = torch.clamp(sr + yo / rs, rows(p, lo.slo, r),
+                                 rows(p, lo.shi, r))
+                yn = yo + rs * (sr - zn)
+                w[lo.zS:lo.zS + r] = zn
+                w[lo.yS:lo.yS + r] = yn
+            xn = rows(p, lo.d, x)
+            for j in range(x):
+                xn = xn + col(p, lo.A, j, x, x) * xs[j]
+            for a in range(u):
+                xn = xn + col(p, lo.B, a, x, u) * uk[a]
+            work[k + 1, lo.X:lo.X + x] = xn
+            xs = xn
+        project(plan[N], warm[N], xs, lo.rhox, lo.xlb, lo.xub, lo.zX,
+                lo.yX, x)
+    return warm, work
+
+
+_lib = None
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = load_library("stagewise_tick")
+    p, i, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.copra_stagewise_tick.restype = i
+    lib.copra_stagewise_tick.argtypes = [p] * 4 + [i] * 7 + [dbl] * 2 + [p]
+    lib.copra_stagewise_layout.restype = i
+    lib.copra_stagewise_layout.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.copra_stagewise_error_string.restype = ctypes.c_char_p
+    lib.copra_stagewise_error_string.argtypes = [i]
+    for shape in KERNEL_SHAPES:     # the C++ layout must be this module's
+        out = (ctypes.c_int * 3)()
+        lo = _Layout(*shape)
+        if lib.copra_stagewise_layout(*shape, out) != 0 or \
+                tuple(out) != (lo.C, lo.W, lo.Kw):
+            raise RuntimeError(f"csrc/stagewise_tick.cu disagrees with "
+                               f"_Layout{shape}: {tuple(out)}")
+    _lib = lib
+    return lib
+
+
+def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha):
+    if (x, u, r) not in KERNEL_SHAPES:
+        raise ValueError(f"stagewise tick kernel: (x, u, r) = {(x, u, r)} "
+                         f"is not instantiated; instantiated shapes "
+                         f"{KERNEL_SHAPES}")
+    if n_iter < 0 or N < 1:
+        raise ValueError(f"n_iter must be >= 0 and N >= 1, got {n_iter}, "
+                         f"{N}")
+    lo = _Layout(x, u, r)
+    nb = plan.shape[-1]
+    dev, dt = plan.device, plan.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"plan must be float32 or float64, got {dt}")
+    for name, t, shape in (("plan", plan, (N + 1, lo.C, nb)),
+                           ("x0", x0, (x, nb)),
+                           ("warm", warm, (N + 1, lo.W, nb))):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, plan on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} is {t.dtype}, plan {dt}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = _load()
+    warm_out = warm.clone()
+    work = torch.empty((N + 1, lo.Kw, nb), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.copra_stagewise_tick(
+            plan.data_ptr(), x0.data_ptr(), warm_out.data_ptr(),
+            work.data_ptr(), nb, N, x, u, r, int(n_iter),
+            int(dt == torch.float64), float(sigma), float(alpha), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"stagewise tick kernel launch failed: CUDA error {rc} "
+            f"({lib.copra_stagewise_error_string(rc).decode()})")
+    return warm_out, work
+
+
+def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
+                         n_iter: int, N: int, x: int, u: int, r: int,
+                         sigma: float, alpha: float
+                         ) -> Tuple[Tensor, Tensor]:
+    """Run ``n_iter`` stagewise-ADMM iterations in one kernel (the resident
+    entry point: small per-stage dimensions, the N=300 ZMP class).
+
+    ``plan [N+1, C, B]``, ``x0 [x, B]``, ``warm [N+1, W, B]``
+    (:class:`_Layout`, lane axis last).  Returns ``(warm', work)``;
+    ``work [N+1, Kw, B]`` carries the final LQR iterates ``X``/``U``.
+    CPU tensors run :func:`stagewise_tick_plain`; CUDA tensors launch
+    ``csrc/stagewise_tick.cu``.
+    """
+    kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha)
+    if plan.device.type == "cpu":
+        return stagewise_tick_plain(plan, x0, warm, **kw)
+    out = _launch(plan, x0, warm, **kw)
+    fused_stagewise_tick.launches += 1
+    return out
+
+
+def fused_stagewise_tick_streamed(plan: Tensor, x0: Tensor, warm: Tensor,
+                                  *, n_iter: int, N: int, x: int, u: int,
+                                  r: int, sigma: float, alpha: float
+                                  ) -> Tuple[Tensor, Tensor]:
+    """The streamed entry point (robot-scale per-stage dimensions, the
+    x = u = r = 12 quadruped class): the same kernel and arguments as
+    :func:`fused_stagewise_tick`, counted apart."""
+    kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha)
+    if plan.device.type == "cpu":
+        return stagewise_tick_plain(plan, x0, warm, **kw)
+    out = _launch(plan, x0, warm, **kw)
+    fused_stagewise_tick_streamed.launches += 1
+    return out
+
+
+fused_stagewise_tick.launches = 0
+fused_stagewise_tick_streamed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Host side: pack a StagewiseQP into the kernel layout and mirror
+# solve_stagewise's seed / residual / status semantics.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedStagewisePlan:
+    """Precomputed fused-tick plan for a batched StagewiseQP: the packed
+    ``plan [N+1, C, B]`` (gains folded in), the entry point ``mode``, the
+    unridged problem's gains ``gains_raw`` for the clipped-unconstrained
+    seed sweep, and what the status pass needs after the kernel."""
+
+    plan: Tensor
+    mode: str                 # "resident" | "streamed"
+    sqp: "object"             # batched StagewiseQP
+    gains_raw: Optional[LQRGains]
+    rows: "object"            # normalized rows (riccati._Rows) or None
+    rho_x: Tensor             # [B, N+1, x]
+    rho_u: Tensor             # [B, N, u]
+
+
+def fused_mode(N: int, x: int, u: int, r: int, dtype) -> str:
+    """The entry point for a problem size, by the reference's component
+    rule: ``(x+u)(x+u+r) <= 256`` unrolled component expressions per stage
+    is ``"resident"`` (config 5), anything larger ``"streamed"`` (config
+    6)."""
+    return "resident" if (x + u) * (x + u + r) <= 256 else "streamed"
+
+
+def check_fused_envelope(N: int, x: int, u: int, r: int, dtype) -> None:
+    """Raise ``ValueError`` unless the CUDA kernel can serve the problem:
+    an instantiated ``(x, u, r)`` and float32 or float64 data."""
+    if (x, u, r) not in KERNEL_SHAPES or dtype not in (torch.float32,
+                                                        torch.float64):
+        raise ValueError(
+            f"fused stagewise kernel envelope: (x, u, r) = {(x, u, r)} in "
+            f"{dtype}; the CUDA kernel is instantiated for (x, u, r) in "
+            f"{KERNEL_SHAPES}, float32 and float64.  Use "
+            f"make_stagewise_step(backend='xla'), or add the shape to "
+            f"csrc/stagewise_tick.cu and KERNEL_SHAPES.")
+
+
+@highest_precision
+def build_fused_plan(sqp, options) -> FusedStagewisePlan:
+    """Pack a (batched) StagewiseQP + options into a fused-tick plan.
+
+    Mirrors ``solve_stagewise``'s preprocessing: per-coordinate box
+    penalties, L2 row normalization, the equality-row rho boost, the
+    ridged stage Hessians; runs the quadratic Riccati recursion once and
+    lays everything out as ``[N+1, C, B]``.  Bounds are clamped to
+    ``finfo.max/4`` (an infinite bound times a zero elsewhere would mint
+    NaNs) and count as finite below ``finfo.max/8``, the test the
+    penalties use, so the gains' ridge and the kernel's z-step agree.
+    """
+    from ..qp.riccati import _lead, _penalized
+
+    if getattr(options, "polish_iters", 0) > 0:
+        raise NotImplementedError(_POLISH)
+    if sqp.A.dim() == 3:
+        sqp = _lead(sqp)
+    nb = sqp.A.shape[0]
+    N, x, u, r = sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows
+    kd = dict(dtype=sqp.A.dtype, device=sqp.A.device)
+    lo = _Layout(x, u, r)
+    fmax = torch.finfo(sqp.A.dtype).max
+    big_test = fmax / 8
+    rho = torch.tensor(float(options.rho), **kd)
+    zero = torch.zeros((), **kd)
+
+    def pen(lb, ub):
+        return torch.where((lb > -big_test) | (ub < big_test), rho, zero)
+
+    rho_x = pen(sqp.xlb, sqp.xub)                      # [B, N+1, x]
+    rho_u = pen(sqp.ulb, sqp.uub)                      # [B, N, u]
+    Qx_r, Ru_r, S_cross, rows = _penalized(sqp, options, rho_x, rho_u)
+    gains = precompute_lqr_gains(sqp.A, sqp.B, sqp.d, Qx_r, Ru_r, S_cross)
+    gains_raw = None
+    if options.seed != "zero":
+        gains_raw = precompute_lqr_gains(sqp.A, sqp.B, sqp.d, sqp.Qx, sqp.Ru)
+
+    cols = torch.zeros((nb, N + 1, lo.C), **kd)
+
+    def put(off, a, stages=N):
+        a = a.reshape(nb, stages, -1)
+        cols[:, :stages, off:off + a.shape[-1]] = a
+
+    big_neg, big_pos = -fmax / 4, fmax / 4
+    put(lo.A, sqp.A)
+    put(lo.B, sqp.B)
+    put(lo.d, sqp.d)
+    put(lo.K, gains.K)
+    put(lo.nF, gains.nF)
+    put(lo.qb, torch.cat([sqp.qx[:, :-1] + gains.avd, sqp.qx[:, -1:]],
+                         dim=1), N + 1)
+    put(lo.rb, sqp.ru + gains.bvd)
+    put(lo.rhox, rho_x, N + 1)
+    put(lo.rhou, rho_u)
+    put(lo.xlb, sqp.xlb.clamp_min(big_neg), N + 1)
+    put(lo.xub, sqp.xub.clamp_max(big_pos), N + 1)
+    put(lo.ulb, sqp.ulb.clamp_min(big_neg))
+    put(lo.uub, sqp.uub.clamp_max(big_pos))
+    if rows is not None:
+        put(lo.Cx, rows.Cx)
+        put(lo.Cu, rows.Cu)
+        put(lo.slo, rows.slo.clamp_min(big_neg))
+        put(lo.shi, rows.shi.clamp_max(big_pos))
+        put(lo.rhos, rows.rho_s)
+    return FusedStagewisePlan(
+        plan=cols.permute(1, 2, 0).contiguous(), mode=fused_mode(
+            N, x, u, r, sqp.A.dtype), sqp=sqp, gains_raw=gains_raw,
+        rows=rows, rho_x=rho_x, rho_u=rho_u)
+
+
+def _pack_warm(fp: FusedStagewisePlan, zX, zU, yX, yU, zS, yS) -> Tensor:
+    """Lane-leading warm arrays -> the kernel's warm tensor [N+1, W, B]."""
+    sqp = fp.sqp
+    nb = sqp.A.shape[0]
+    N, x, u, r = sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows
+    lo = _Layout(x, u, r)
+    w = torch.zeros((nb, N + 1, lo.W), dtype=sqp.A.dtype,
+                    device=sqp.A.device)
+    w[:, :, lo.zX:lo.zX + x] = zX
+    w[:, :, lo.yX:lo.yX + x] = yX
+    w[:, :N, lo.zU:lo.zU + u] = zU
+    w[:, :N, lo.yU:lo.yU + u] = yU
+    if r:
+        w[:, :N, lo.zS:lo.zS + r] = zS
+        w[:, :N, lo.yS:lo.yS + r] = yS
+    return w.permute(1, 2, 0).contiguous()
+
+
+@highest_precision
+def _lane_residuals(sqp, options, rho_x: Tensor, rho_u: Tensor, rows, X, U,
+                    zX, zU, yX, yU, zS, yS):
+    """Per-lane ``(r_prim, r_dual, converged)`` of iterates: box gaps only
+    where a split exists, row gaps and the dual residual in the original
+    row metric, against ``10 max(eps_abs, 25 eps(dtype))`` (the dual one
+    relative to ``_dual_scale``); shared by the status of both paths
+    and the top-up check."""
+    from ..qp.riccati import _dual_scale, _lane_max, stagewise_dual_residual
+
+    zero = torch.zeros((), dtype=sqp.A.dtype, device=sqp.A.device)
+    r_prim = torch.maximum(
+        _lane_max(torch.where(rho_x > 0, (X - zX).abs(), zero)),
+        _lane_max(torch.where(rho_u > 0, (U - zU).abs(), zero)))
+    if rows is not None:
+        r_prim = torch.maximum(r_prim, _lane_max(
+            ((rows.eval(X, U) - zS) / rows.Es).abs()))
+        r_dual = stagewise_dual_residual(sqp, X, U, yX, yU, yS * rows.Es)
+    else:
+        r_dual = stagewise_dual_residual(sqp, X, U, yX, yU)
+    eps = max(options.eps_abs, 25.0 * torch.finfo(sqp.A.dtype).eps) * 10
+    return r_prim, r_dual, (r_prim <= eps) & (r_dual <= eps * _dual_scale(sqp))
+
+
+@highest_precision
+def solve_stagewise_fused(sqp, options, warm_start=None,
+                          return_warm: bool = False,
+                          plan: Optional[FusedStagewisePlan] = None):
+    """Drop-in for the batched ``solve_stagewise`` (fixed iteration count)
+    through the fused tick: the same update order, seeds, residuals and
+    statuses.  ``plan`` (from :func:`build_fused_plan`) skips the pack and
+    gains work; serving callers hold one per problem and tick with a fresh
+    ``x0``.  With ``options.topup_iters`` the whole batch runs that many
+    more iterations when any lane's delivered residuals miss the
+    tolerance (one host-side check per tick).
+    """
+    from ..qp.riccati import _initial_state, _lead, _result
+
+    single = sqp.A.dim() == 3
+    if single:
+        sqp = _lead(sqp)
+        if warm_start is not None:
+            warm_start = tuple(w.unsqueeze(0) for w in warm_start)
+    fp = plan if plan is not None else build_fused_plan(sqp, options)
+    sqp = fp.sqp
+    nb = sqp.A.shape[0]
+    N, x, u, r = sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows
+    lo = _Layout(x, u, r)
+    zX0, zU0, yX0, yU0, zS0, yS0 = _initial_state(
+        sqp, options, warm_start, fp.rows,
+        lambda: lqr_solve_fixed(fp.gains_raw, sqp.A, sqp.B, sqp.d, sqp.qx,
+                                sqp.ru, sqp.x0))
+    warm0 = _pack_warm(fp, zX0, zU0, yX0, yU0, zS0, yS0)
+    x0 = sqp.x0.mT.contiguous()                        # [x, B]
+    entry = (fused_stagewise_tick if fp.mode == "resident"
+             else fused_stagewise_tick_streamed)
+
+    def run(warm_t, n_iter):
+        return entry(fp.plan, x0, warm_t, n_iter=n_iter, N=N, x=x, u=u,
+                     r=r, sigma=float(options.sigma),
+                     alpha=float(options.alpha))
+
+    def take(t, off, c, stages=N + 1):
+        return t[:stages, off:off + c].permute(2, 0, 1)
+
+    def unpack(warm_t, work_t):
+        """Kernel tensors -> (X, U, zX, zU, yX, yU, zS, yS)."""
+        return (take(work_t, lo.X, x), take(work_t, lo.U, u, N),
+                take(warm_t, lo.zX, x), take(warm_t, lo.zU, u, N),
+                take(warm_t, lo.yX, x), take(warm_t, lo.yU, u, N),
+                take(warm_t, lo.zS, r, N), take(warm_t, lo.yS, r, N))
+
+    def residuals(vals):
+        return _lane_residuals(sqp, options, fp.rho_x, fp.rho_u, fp.rows,
+                               *vals)
+
+    warm1, work = run(warm0, options.max_iter)
+    vals = unpack(warm1, work)
+    res = residuals(vals)
+    topup = int(getattr(options, "topup_iters", 0))
+    if topup > 0 and not bool(res[2].all()):
+        # batch-level top-up: converged lanes sit at their fixed point
+        vals = unpack(*run(warm1, topup))
+        res = residuals(vals)
+    iters = torch.full((nb,), int(options.max_iter), dtype=torch.int32,
+                       device=sqp.A.device)
+    return _result(sqp, fp.rows, vals[0], vals[1], vals[2:], res, iters,
+                   torch.zeros_like(iters), single, return_warm)

@@ -1,0 +1,1093 @@
+"""Stagewise (uncondensed) MPC solver: Riccati-in-ADMM.
+
+Port of ``copra_tpu/qp/riccati.py``.  The QP keeps its stagewise structure
+(variables ``(X, U)``, dynamics as equality structure) and every ADMM
+w-update is one Riccati (LQR) sweep: O(N) work and memory per iteration.
+Boxes on states and controls and general per-stage rows are handled by the
+ADMM projection.
+
+    min  sum_k 1/2 x_k'Qx_k x_k + qx_k'x_k + 1/2 u_k'Ru_k u_k + ru_k'u_k
+    s.t. x_{k+1} = A_k x_k + B_k u_k + d_k,   x_0 fixed,
+         xlb <= x <= xub,  ulb <= u <= uub,  clo <= Cx x + Cu u <= chi
+
+Where the reference vmaps one problem over a fleet, the port writes the
+lane axis out: every function here takes one problem (``A [N, x, x]``) or a
+batch (``A [B, N, x, x]``), and a batched early-exit solve stops each lane
+at its own convergence, as the vmapped ``lax.while_loop`` does.  The
+sweeps are Python loops over stages, batched over lanes.
+
+Not ported here: ``lqr_solve_assoc`` (``parallel_scan=True`` raises,
+ROADMAP item 11), ``auto_rho_stagewise``/``auto_iters_stagewise``,
+``make_stagewise_server`` and ``make_stagewise_multistep``.  Dropped:
+``warn_if_emulated_f64`` (the H100 has FP64), the module-level jit caches
+and their ``TICK_TRACE_COUNTERS`` (PyTorch runs eagerly).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .._precision import highest_precision
+from .._tensors import common, matvec as _mv, matvec_t as _mtv
+from ..constraints import (Constraint, ControlBoundConstraint,
+                           ControlConstraint, MixedConstraint,
+                           TrajectoryBoundConstraint, TrajectoryConstraint)
+from ..costs import (ControlCost, CostFunction, SimpleControlCost,
+                     SimpleTrajectoryCost, TargetCost, TrajectoryCost)
+from ..errors import DimensionError, InfeasibleProblemError
+from ..systems import LTISystem, System
+from .types import (STATUS_MAX_ITER, STATUS_PRIMAL_INFEASIBLE,
+                    STATUS_SOLVED, QPSolution, SolverOptions)
+
+Tensor = torch.Tensor
+
+_PARALLEL_SCAN = ("parallel_scan=True needs lqr_solve_assoc (the log-depth "
+                  "Riccati scan), which is not yet ported (ROADMAP item 11)")
+
+
+@dataclasses.dataclass(frozen=True)
+class StagewiseQP:
+    """Stagewise LQ problem with boxes and general per-stage rows.
+
+        clo_k <= Cx_k x_k + Cu_k u_k <= chi_k,   k = 0..N-1
+
+    (``Cx/Cu/clo/chi`` are ``None`` for the box-only problem).  A batch
+    adds a leading lane axis to every field.
+    """
+
+    A: Tensor       # [N, x, x]
+    B: Tensor       # [N, x, u]
+    d: Tensor       # [N, x]
+    Qx: Tensor      # [N+1, x, x]
+    qx: Tensor      # [N+1, x]
+    Ru: Tensor      # [N, u, u]
+    ru: Tensor      # [N, u]
+    x0: Tensor      # [x]
+    xlb: Tensor     # [N+1, x]
+    xub: Tensor     # [N+1, x]
+    ulb: Tensor     # [N, u]
+    uub: Tensor     # [N, u]
+    Cx: Optional[Tensor] = None   # [N, r, x]
+    Cu: Optional[Tensor] = None   # [N, r, u]
+    clo: Optional[Tensor] = None  # [N, r]
+    chi: Optional[Tensor] = None  # [N, r]
+
+    @property
+    def horizon(self) -> int:
+        return self.A.shape[-3]
+
+    @property
+    def xdim(self) -> int:
+        return self.A.shape[-1]
+
+    @property
+    def udim(self) -> int:
+        return self.B.shape[-1]
+
+    @property
+    def nr_rows(self) -> int:
+        """General rows per stage (0 when box-only)."""
+        return 0 if self.Cx is None else self.Cx.shape[-2]
+
+
+def _lead(sqp: StagewiseQP) -> StagewiseQP:
+    """A single problem as a batch of one lane."""
+    return StagewiseQP(**{f.name: (None if getattr(sqp, f.name) is None
+                                   else getattr(sqp, f.name).unsqueeze(0))
+                          for f in dataclasses.fields(StagewiseQP)})
+
+
+def _ein(eq: str, *ts) -> Tensor:
+    """``einsum`` in the promoted dtype of its operands (as ``jnp.einsum``
+    promotes; torch requires one dtype)."""
+    return torch.einsum(eq, *common(*ts, device=ts[0].device))
+
+
+def _lane_max(t: Tensor) -> Tensor:
+    """Max over every axis but the lane axis (0 for an empty tensor)."""
+    flat = t.reshape(t.shape[0], -1)
+    if flat.shape[1] == 0:
+        return torch.zeros(t.shape[0], dtype=t.dtype, device=t.device)
+    return flat.amax(dim=1)
+
+
+def _lane_sum(t: Tensor) -> Tensor:
+    return t.reshape(t.shape[0], -1).sum(dim=1)
+
+
+def _blockdiag_blocks(Mfull, n_blocks: int, coldim: int):
+    """If ``Mfull [(n_blocks*r), (n_blocks*coldim)]`` is block-diagonal with
+    equal-sized blocks, return the diagonal blocks ``[n_blocks, r,
+    coldim]`` (a tensor of ``Mfull``'s dtype and device); else ``None``.
+
+    Host-side: the off-diagonal mass is summed exactly in f64 with the
+    diagonal blocks zeroed, and anything beyond element roundoff of the
+    diagonal scale counts as real coupling (the reference's absolute
+    test)."""
+    M = Mfull.detach().cpu().numpy() if isinstance(Mfull, Tensor) \
+        else np.asarray(Mfull)
+    if M.ndim != 2:
+        return None
+    rows, cols = M.shape
+    if cols != n_blocks * coldim or rows % n_blocks:
+        return None
+    r = rows // n_blocks
+    blocks = M.reshape(n_blocks, r, n_blocks, coldim)
+    diag = blocks[np.arange(n_blocks), :, np.arange(n_blocks), :]
+    off = np.abs(blocks.astype(np.float64, copy=True))
+    off[np.arange(n_blocks), :, np.arange(n_blocks), :] = 0.0
+    unit = max(1.0, float(np.abs(diag).max(initial=0.0)))
+    if off.sum() > 1e-12 * unit * max(1, rows):
+        return None
+    dev = Mfull.device if isinstance(Mfull, Tensor) else "cpu"
+    return torch.tensor(np.ascontiguousarray(diag), device=dev)
+
+
+def _float_dtypes(obj):
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, Tensor) and v.is_floating_point():
+            yield v.dtype
+
+
+def from_mpc(system: System,
+             costs: Sequence[CostFunction],
+             constraints: Sequence[Constraint]) -> StagewiseQP:
+    """Map costs/constraints onto stagewise data (host-side builder).
+
+    Costs: TargetCost; TrajectoryCost/SimpleTrajectoryCost (per-step, or
+    full-horizon when block-diagonal); ControlCost/SimpleControlCost.
+    Bounds: TrajectoryBoundConstraint, ControlBoundConstraint.  General
+    rows: TrajectoryConstraint, ControlConstraint, MixedConstraint become
+    per-stage rows ``Cx_k x_k + Cu_k u_k``; rows on ``x_{k+1}`` are
+    re-expressed through the dynamics (``Cx = E A_k``, ``Cu = E B_k``,
+    bounds shifted by ``E d_k``).  Trajectory rows on ``x_0`` are checked
+    at build time and dropped: a violated one raises
+    :class:`InfeasibleProblemError`.  MixedCost and non-block-diagonal
+    full-horizon entries couple stages and raise with guidance to the
+    condensed path.  Assembly runs in the widest floating dtype of the
+    system and the user data; the result is cast to the system dtype.
+    """
+    from ..mpc import HESSIAN_RIDGE
+
+    N = system.horizon
+    x, u = system.xdim, system.udim
+    if isinstance(system, LTISystem):
+        A = system.A.expand(N, x, x)
+        B = system.B.expand(N, x, u)
+        d = system.d.expand(N, x)
+    else:
+        A, B, d = system.A, system.B, system.d
+    dt = A.dtype
+    dev = A.device
+    wide = dt
+    for obj in tuple(costs) + tuple(constraints):
+        for odt in _float_dtypes(obj):
+            wide = torch.promote_types(wide, odt)
+    kw = dict(dtype=wide, device=dev)
+
+    Qx = torch.zeros((N + 1, x, x), **kw)
+    qx = torch.zeros((N + 1, x), **kw)
+    Ru = (HESSIAN_RIDGE * torch.eye(u, **kw)).expand(N, u, u)
+    ru = torch.zeros((N, u), **kw)
+
+    for cost in costs:
+        if isinstance(cost, TargetCost):
+            M, p, w = cost.M, cost.p, cost.weights
+            Qx = torch.cat([Qx[:-1], (Qx[-1] + _ein("rx,r,ry->xy", M, w, M)
+                                      )[None]])
+            qx = torch.cat([qx[:-1], (qx[-1] - _ein("r,r,rx->x", p, w, M)
+                                      )[None]])
+        elif isinstance(cost, TrajectoryCost):
+            M, p, w = cost.M, cost.p, cost.weights
+            if M.shape[1] == x:          # per-step, constant
+                Qx = Qx + _ein("rx,r,ry->xy", M, w, M)[None]
+                qx = qx - _ein("r,r,rx->x", p, w, M)[None]
+            else:                        # full-horizon: block-diag only
+                Mk = _blockdiag_blocks(M, N + 1, x)
+                if Mk is None:
+                    raise DimensionError(
+                        "full-horizon TrajectoryCost with a non-block-"
+                        "diagonal M couples stages; use the condensed "
+                        "path ('admm' solver) for it.")
+                rr = Mk.shape[1]
+                pk = p.reshape(N + 1, rr)
+                wk = w.reshape(N + 1, rr)
+                Qx = Qx + _ein("krx,kr,kry->kxy", Mk, wk, Mk)
+                qx = qx - _ein("kr,kr,krx->kx", pk, wk, Mk)
+        elif isinstance(cost, SimpleTrajectoryCost):
+            w, p = cost.weights, cost.p
+            if p.shape[0] == x:
+                Qx = Qx + torch.diag(w)[None]
+                qx = qx - (w * p)[None]
+            else:                        # full-horizon (time-varying)
+                Qx = Qx + torch.diag_embed(w.reshape(N + 1, x))
+                qx = qx - (w * p).reshape(N + 1, x)
+        elif isinstance(cost, ControlCost) and cost.N.shape[1] == u:
+            Nm, p, w = cost.N, cost.p, cost.weights
+            Ru = Ru + _ein("ru,r,rv->uv", Nm, w, Nm)[None]
+            ru = ru - _ein("r,r,ru->u", p, w, Nm)[None]
+        elif isinstance(cost, SimpleControlCost):
+            w, p = cost.weights, cost.p
+            if p.shape[0] == u:
+                Ru = Ru + torch.diag(w)[None]
+                ru = ru - (w * p)[None]
+            else:
+                Ru = Ru + torch.diag_embed(w.reshape(N, u))
+                ru = ru - (w * p).reshape(N, u)
+        else:
+            raise DimensionError(
+                f"{type(cost).__name__} (or its full-horizon mode) couples "
+                f"stages; use the condensed path ('admm' solver) for it.")
+
+    kd = dict(dtype=dt, device=dev)
+    xlb = torch.full((N + 1, x), -torch.inf, **kd)
+    xub = torch.full((N + 1, x), torch.inf, **kd)
+    ulb = torch.full((N, u), -torch.inf, **kd)
+    uub = torch.full((N, u), torch.inf, **kd)
+    row_sets = []          # (Cx [N,r,x], Cu [N,r,u], lo [N,r], hi [N,r])
+
+    def check_x0_rows(E0, f0, is_ineq):
+        """Build-time feasibility of the dropped ``x_0`` trajectory rows
+        (x_0 is data; reference constraint tolerance 1e-6)."""
+        E0c = E0.detach().cpu().numpy()
+        f0c = f0.detach().cpu().numpy()
+        x0c = system.x0.detach().cpu().numpy()
+        v = np.einsum("rx,...x->...r", E0c, x0c)
+        fin = np.isfinite(f0c)
+        if not fin.any():
+            return
+        scale = max(1.0, float(np.abs(f0c[fin]).max(initial=0.0)),
+                    float(np.abs(v).max(initial=0.0)))
+        gap = (v - f0c) if is_ineq else np.abs(v - f0c)
+        gap = np.where(np.broadcast_to(fin, gap.shape), gap, -np.inf)
+        worst = float(gap.max(initial=-np.inf))
+        if worst > 1e-6 * scale:
+            kind = "E x_0 <= f" if is_ineq else "E x_0 = f"
+            raise InfeasibleProblemError(
+                f"TrajectoryConstraint row on the fixed initial state is "
+                f"violated at build time: worst '{kind}' gap "
+                f"{worst:.3e} (tolerance {1e-6 * scale:.1e}).  The "
+                f"stagewise path treats x_0 as data; fix x_0 or the "
+                f"constraint, or use the condensed path to see the "
+                f"solver-level infeasibility certificate.")
+
+    def traj_rows(Ek, fk, is_ineq):
+        """Rows ``E_k x_k (<=|=) f_k`` for k=1..N expressed at stage k-1
+        through the dynamics."""
+        E1, f1 = Ek[1:], fk[1:]
+        Cx_r = _ein("krx,kxy->kry", E1, A)
+        Cu_r = _ein("krx,kxu->kru", E1, B)
+        hi = f1 - _ein("krx,kx->kr", E1, d)
+        lo = hi if not is_ineq else torch.full_like(hi, -torch.inf)
+        return (Cx_r, Cu_r, lo, hi)
+
+    for constr in constraints:
+        if isinstance(constr, TrajectoryBoundConstraint):
+            lo, up = constr.lower_bound.to(dev), constr.upper_bound.to(dev)
+            if lo.shape[0] != x:
+                lo, up = lo.reshape(N + 1, x), up.reshape(N + 1, x)
+            xlb = torch.maximum(xlb, lo)
+            xub = torch.minimum(xub, up)
+        elif isinstance(constr, ControlBoundConstraint):
+            lo, up = constr.lower_bound.to(dev), constr.upper_bound.to(dev)
+            if lo.shape[0] != u:
+                lo, up = lo.reshape(N, u), up.reshape(N, u)
+            ulb = torch.maximum(ulb, lo)
+            uub = torch.minimum(uub, up)
+        elif isinstance(constr, MixedConstraint):
+            E, G, f = constr.E, constr.G, constr.f
+            if E.shape[1] != x:
+                raise DimensionError(
+                    "full-horizon MixedConstraint couples stages; use the "
+                    "condensed path ('admm' solver) for it.")
+            # row k pairs x_k with u_k, k=0..N-1
+            r0 = E.shape[0]
+            hi = f.expand(N, r0)
+            lo = hi if not constr.is_inequality \
+                else torch.full_like(hi, -torch.inf)
+            row_sets.append((E.expand(N, r0, x), G.expand(N, r0, u), lo, hi))
+        elif isinstance(constr, TrajectoryConstraint):
+            E, f = constr.E, constr.f
+            if E.shape[1] == x:           # per-step, constant rows
+                r0 = E.shape[0]
+                Ek = E.expand(N + 1, r0, x)
+                fk = f.expand(N + 1, r0)
+            else:                         # full-horizon: block-diag only
+                Ek = _blockdiag_blocks(E, N + 1, x)
+                if Ek is None:
+                    raise DimensionError(
+                        "full-horizon TrajectoryConstraint with a non-"
+                        "block-diagonal E couples stages; use the "
+                        "condensed path ('admm' solver) for it.")
+                fk = f.reshape(N + 1, Ek.shape[1])
+            check_x0_rows(Ek[0], fk[0], constr.is_inequality)
+            row_sets.append(traj_rows(Ek, fk, constr.is_inequality))
+        elif isinstance(constr, ControlConstraint):
+            G, f = constr.G, constr.f
+            if G.shape[1] == u:
+                r0 = G.shape[0]
+                Gk = G.expand(N, r0, u)
+                fk = f.expand(N, r0)
+            else:
+                Gk = _blockdiag_blocks(G, N, u)
+                if Gk is None:
+                    raise DimensionError(
+                        "full-horizon ControlConstraint with a non-block-"
+                        "diagonal G couples stages; use the condensed "
+                        "path ('admm' solver) for it.")
+                fk = f.reshape(N, Gk.shape[1])
+            r0 = Gk.shape[1]
+            lo = fk if not constr.is_inequality \
+                else torch.full_like(fk, -torch.inf)
+            row_sets.append((torch.zeros((N, r0, x), **kd), Gk, lo, fk))
+        else:
+            raise DimensionError(
+                f"{type(constr).__name__} is not expressible stagewise; "
+                f"use the condensed path ('admm' solver) for it.")
+
+    cast = lambda a: None if a is None else a.to(**kd).contiguous()
+    if row_sets:
+        Cx, Cu, clo, chi = (torch.cat([cast(s[i]) for s in row_sets], dim=1)
+                            for i in range(4))
+    else:
+        Cx = Cu = clo = chi = None
+    return StagewiseQP(A=cast(A), B=cast(B), d=cast(d), Qx=cast(Qx),
+                       qx=cast(qx), Ru=cast(Ru), ru=cast(ru),
+                       x0=cast(system.x0), xlb=cast(xlb), xub=cast(xub),
+                       ulb=cast(ulb), uub=cast(uub), Cx=Cx, Cu=Cu, clo=clo,
+                       chi=chi)
+
+
+@highest_precision
+def lqr_solve(A: Tensor, B: Tensor, d: Tensor, Qx: Tensor, qx: Tensor,
+              Ru: Tensor, ru: Tensor, x0: Tensor,
+              S: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Equality-constrained stagewise LQ solve by one Riccati sweep
+    (backward value recursion + forward rollout); leading batch dims
+    allowed.  Returns ``(X [N+1, x], U [N, u])``.  ``S [N, x, u]`` adds
+    cross costs ``x_k' S_k u_k``; the joint stage Hessian must be PD."""
+    N, xdim, udim = A.shape[-3], A.shape[-1], B.shape[-1]
+    if S is None:
+        S = torch.zeros(A.shape[:-1] + (udim,), dtype=A.dtype,
+                        device=A.device)
+    V, v = Qx[..., N, :, :], qx[..., N, :]
+    Ks, ks = [None] * N, [None] * N
+    for k in range(N - 1, -1, -1):
+        A_k, B_k, d_k = A[..., k, :, :], B[..., k, :, :], d[..., k, :]
+        BtV = B_k.mT @ V
+        F = Ru[..., k, :, :] + BtV @ B_k
+        G = S[..., k, :, :].mT + BtV @ A_k
+        h = ru[..., k, :] + _mtv(B_k, v) + _mv(BtV, d_k)
+        L = torch.linalg.cholesky(F)
+        Ks[k] = -torch.cholesky_solve(G, L)
+        ks[k] = -torch.cholesky_solve(h.unsqueeze(-1), L).squeeze(-1)
+        AtV = A_k.mT @ V
+        V = Qx[..., k, :, :] + AtV @ A_k + G.mT @ Ks[k]
+        v = qx[..., k, :] + _mtv(A_k, v) + _mv(AtV, d_k) + _mtv(G, ks[k])
+        V = 0.5 * (V + V.mT)
+    X, U = [x0], []
+    for k in range(N):
+        U.append(_mv(Ks[k], X[-1]) + ks[k])
+        X.append(_mv(A[..., k, :, :], X[-1]) + _mv(B[..., k, :, :], U[-1])
+                 + d[..., k, :])
+    return torch.stack(X, dim=-2), torch.stack(U, dim=-2)
+
+
+def _box_penalties(lb: Tensor, ub: Tensor, rho: float) -> Tensor:
+    """Per-coordinate penalty: ``rho`` where a finite bound exists, else 0
+    (no consensus split on an unbounded coordinate)."""
+    return torch.where(torch.isfinite(lb) | torch.isfinite(ub),
+                       torch.tensor(rho, dtype=lb.dtype, device=lb.device),
+                       torch.zeros((), dtype=lb.dtype, device=lb.device))
+
+
+class _Rows(NamedTuple):
+    """General rows, L2-normalized (an exact reparametrization): the
+    normalization ``Es``, the normalized ``Cx``/``Cu`` and bounds, and the
+    per-row penalties (``rho * rho_eq_scale`` on equality rows)."""
+
+    Es: Tensor       # [B, N, r]
+    Cx: Tensor
+    Cu: Tensor
+    slo: Tensor
+    shi: Tensor
+    rho_s: Tensor
+
+    def eval(self, X: Tensor, U: Tensor) -> Tensor:
+        """``Cx x_k + Cu u_k`` in the normalized metric."""
+        return (torch.einsum("bkrx,bkx->bkr", self.Cx, X[:, :-1])
+                + torch.einsum("bkru,bku->bkr", self.Cu, U))
+
+
+def _penalized(sqp: StagewiseQP, options: SolverOptions, rho_x: Tensor,
+               rho_u: Tensor):
+    """The iteration-invariant stage Hessians of a batched problem: the
+    sigma ridge and box penalties, plus the row penalties' constant blocks
+    and ``x'(Cx'Cu)u`` cross term.  Returns ``(Qx_r, Ru_r, S, rows)``
+    (``S`` and ``rows`` ``None`` when box-only)."""
+    x, u = sqp.xdim, sqp.udim
+    kd = dict(dtype=sqp.A.dtype, device=sqp.A.device)
+    sigma, rho = float(options.sigma), float(options.rho)
+    Qx_r = sqp.Qx + sigma * torch.eye(x, **kd) + torch.diag_embed(rho_x)
+    Ru_r = sqp.Ru + sigma * torch.eye(u, **kd) + torch.diag_embed(rho_u)
+    if not sqp.nr_rows:
+        return Qx_r, Ru_r, None, None
+    rn = torch.sqrt((sqp.Cx * sqp.Cx).sum(-1) + (sqp.Cu * sqp.Cu).sum(-1))
+    Es = torch.where(rn > 1e-12, 1.0 / rn, torch.ones_like(rn))
+    rows = _Rows(Es=Es, Cx=sqp.Cx * Es[..., None], Cu=sqp.Cu * Es[..., None],
+                 slo=sqp.clo * Es, shi=sqp.chi * Es,
+                 rho_s=torch.where(sqp.clo == sqp.chi,
+                                   torch.tensor(rho * options.rho_eq_scale,
+                                                **kd),
+                                   torch.tensor(rho, **kd)))
+    Qx_r = torch.cat([Qx_r[:, :-1] + torch.einsum(
+        "bkrx,bkr,bkry->bkxy", rows.Cx, rows.rho_s, rows.Cx), Qx_r[:, -1:]],
+        dim=1)
+    Ru_r = Ru_r + torch.einsum("bkru,bkr,bkrv->bkuv", rows.Cu, rows.rho_s,
+                               rows.Cu)
+    S = torch.einsum("bkrx,bkr,bkru->bkxu", rows.Cx, rows.rho_s, rows.Cu)
+    return Qx_r, Ru_r, S, rows
+
+
+def _initial_state(sqp: StagewiseQP, options: SolverOptions, warm_start,
+                   rows: Optional[_Rows], sweep):
+    """``(zX, zU, yX, yU, zS, yS)`` to start from: the carried warm tuple
+    (box-only problems reseed z at the clipped unconstrained optimum of
+    the new problem, ``sweep()``, and keep the duals: with rows the split
+    state encodes the active set and is carried whole), the clipped
+    unconstrained optimum cold, or zeros with ``seed='zero'``."""
+    nb, N, x, u, r = (sqp.A.shape[0], sqp.horizon, sqp.xdim, sqp.udim,
+                      sqp.nr_rows)
+    kd = dict(dtype=sqp.A.dtype, device=sqp.A.device)
+    zS0 = yS0 = torch.zeros((nb, N, r), **kd)
+    if rows is not None:
+        zS0 = torch.clamp(zS0, rows.slo, rows.shi)
+    if warm_start is not None:
+        zX0, zU0, yX0, yU0 = warm_start[:4]
+        if rows is not None and len(warm_start) > 4:
+            zS0, yS0 = warm_start[4], warm_start[5]
+        if options.seed != "zero" and rows is None:
+            Xu, Uu = sweep()
+            zX0 = torch.clamp(Xu, sqp.xlb, sqp.xub)
+            zU0 = torch.clamp(Uu, sqp.ulb, sqp.uub)
+        return zX0, zU0, yX0, yU0, zS0, yS0
+    yX0 = torch.zeros((nb, N + 1, x), **kd)
+    yU0 = torch.zeros((nb, N, u), **kd)
+    if options.seed == "zero":
+        return torch.zeros_like(yX0), torch.zeros_like(yU0), yX0, yU0, \
+            zS0, yS0
+    Xu, Uu = sweep()
+    if rows is not None:
+        zS0 = torch.clamp(rows.eval(Xu, Uu), rows.slo, rows.shi)
+    return (torch.clamp(Xu, sqp.xlb, sqp.xub),
+            torch.clamp(Uu, sqp.ulb, sqp.uub), yX0, yU0, zS0, yS0)
+
+
+def _result(sqp: StagewiseQP, rows: Optional[_Rows], X, U, warm, res,
+            iters: Tensor, infeas_code: Tensor, single: bool,
+            return_warm: bool):
+    """``(X, U, info[, warm])`` from delivered iterates: status from the
+    residuals, a confirmed infeasibility certificate, and crossed bounds
+    (every projection set empty); ``info.y``/``info.z`` in the original
+    row metric, the warm tuple in the internal one."""
+    nb = sqp.A.shape[0]
+    zX, zU, yX, yU, zS, yS = warm
+    r_prim, r_dual, conv = res
+    status = torch.where(conv, STATUS_SOLVED, STATUS_MAX_ITER)
+    status = torch.where(infeas_code > 0, infeas_code, status)
+    lane_any = lambda m: m.reshape(nb, -1).any(dim=1)
+    crossed = lane_any(sqp.xlb > sqp.xub) | lane_any(sqp.ulb > sqp.uub)
+    if rows is not None:
+        crossed = crossed | lane_any(sqp.clo > sqp.chi)
+    status = torch.where(crossed, STATUS_PRIMAL_INFEASIBLE, status)
+    flat = lambda a: a.reshape(nb, -1)
+    info = QPSolution(
+        x=flat(U),
+        y=torch.cat([flat(yX), flat(yU),
+                     flat(yS * rows.Es if rows is not None else yS)], dim=1),
+        z=torch.cat([flat(zX), flat(zU),
+                     flat(zS / rows.Es if rows is not None else zS)], dim=1),
+        status=status.to(torch.int32), iterations=iters.to(torch.int32),
+        primal_residual=r_prim, dual_residual=r_dual)
+    if rows is None:
+        warm = warm[:4]
+    if single:
+        X, U = X[0], U[0]
+        info = QPSolution(**{f.name: getattr(info, f.name)[0]
+                             for f in dataclasses.fields(QPSolution)})
+        warm = tuple(w[0] for w in warm)
+    return (X, U, info, warm) if return_warm else (X, U, info)
+
+
+@highest_precision
+def solve_stagewise(sqp: StagewiseQP,
+                    options: SolverOptions = SolverOptions(),
+                    warm_start=None,
+                    parallel_scan: bool = False,
+                    return_warm: bool = False):
+    """Stagewise MPC by Riccati-in-ADMM: boxes + general per-stage rows.
+
+    Split ``w = (X_1..N, U_0..N-1)`` against its box projection ``z`` and,
+    with general rows, ``s_k = Cx_k x_k + Cu_k u_k`` against its interval
+    projection ``zS``; the w-update is one LQR sweep with the iteration-
+    invariant gains (:func:`~copra_tpu_torch.ops.stagewise_kernel.
+    precompute_lqr_gains`) whose stage costs absorb the row penalties.
+    Rows are L2-normalized internally; equality rows get the
+    ``rho_eq_scale`` boost.  Returns ``(X, U, info)`` (and the warm tuple,
+    in the internal row metric, with ``return_warm``); ``warm_start`` is
+    ``(zX, zU, yX, yU)`` or ``(zX, zU, yX, yU, zS, yS)``.
+
+    ``options.early_exit`` runs chunks of ``check_interval`` iterations
+    with a residual check after each; each lane of a batch stops at its
+    own convergence.  Both loop modes report primal-infeasibility
+    certificates from the dual-delta directions, and crossed bounds report
+    ``STATUS_PRIMAL_INFEASIBLE`` directly.
+    """
+    if parallel_scan:
+        raise NotImplementedError(_PARALLEL_SCAN)
+    from ..ops.stagewise_kernel import (_lane_residuals, lqr_solve_fixed,
+                                        precompute_lqr_gains)
+
+    single = sqp.A.dim() == 3
+    if single:
+        sqp = _lead(sqp)
+        if warm_start is not None:
+            warm_start = tuple(w.unsqueeze(0) for w in warm_start)
+    nb, N = sqp.A.shape[0], sqp.horizon
+    dev = sqp.A.device
+    kd = dict(dtype=sqp.A.dtype, device=dev)
+    sigma, alpha = float(options.sigma), float(options.alpha)
+    oma = 1.0 - alpha
+
+    rho_x = _box_penalties(sqp.xlb, sqp.xub, float(options.rho))
+    rho_u = _box_penalties(sqp.ulb, sqp.uub, float(options.rho))
+    rho_x_safe, rho_u_safe = rho_x.clamp_min(1e-30), rho_u.clamp_min(1e-30)
+    box_x, box_u = rho_x > 0, rho_u > 0
+    Qx_r, Ru_r, S_cross, rows = _penalized(sqp, options, rho_x, rho_u)
+    gains_r = precompute_lqr_gains(sqp.A, sqp.B, sqp.d, Qx_r, Ru_r, S_cross)
+    warm0 = _initial_state(
+        sqp, options, warm_start, rows,
+        lambda: lqr_solve(sqp.A, sqp.B, sqp.d, sqp.Qx, sqp.qx, sqp.Ru,
+                          sqp.ru, sqp.x0))
+
+    def one_iter(carry):
+        zX, zU, yX, yU, zS, yS, wX, wU = carry
+        qx_k = sqp.qx - (rho_x * zX - yX) - sigma * wX
+        ru_k = sqp.ru - (rho_u * zU - yU) - sigma * wU
+        if rows is not None:
+            vS = rows.rho_s * zS - yS
+            qx_k = torch.cat([qx_k[:, :-1] - torch.einsum(
+                "bkrx,bkr->bkx", rows.Cx, vS), qx_k[:, -1:]], dim=1)
+            ru_k = ru_k - torch.einsum("bkru,bkr->bku", rows.Cu, vS)
+        X, U = lqr_solve_fixed(gains_r, sqp.A, sqp.B, sqp.d, qx_k, ru_k,
+                               sqp.x0)
+        Xr = alpha * X + oma * zX
+        Ur = alpha * U + oma * zU
+        zX_n = torch.where(box_x, torch.clamp(Xr + yX / rho_x_safe,
+                                              sqp.xlb, sqp.xub), Xr)
+        zU_n = torch.where(box_u, torch.clamp(Ur + yU / rho_u_safe,
+                                              sqp.ulb, sqp.uub), Ur)
+        # x_0 is data, not a variable: pin its copy
+        zX_n = torch.cat([X[:, :1], zX_n[:, 1:]], dim=1)
+        yX_n = yX + rho_x * (Xr - zX_n)
+        yU_n = yU + rho_u * (Ur - zU_n)
+        if rows is not None:
+            sr = alpha * rows.eval(X, U) + oma * zS
+            zS_n = torch.clamp(sr + yS / rows.rho_s, rows.slo, rows.shi)
+            yS_n = yS + rows.rho_s * (sr - zS_n)
+        else:
+            zS_n, yS_n = zS, yS
+        return (zX_n, zU_n, yX_n, yU_n, zS_n, yS_n, X, U)
+
+    def residuals(state):
+        return _lane_residuals(sqp, options, rho_x, rho_u, rows, state[6],
+                               state[7], *state[:6])
+
+    a_scale = torch.maximum(torch.maximum(_lane_max(sqp.A.abs()),
+                                          _lane_max(sqp.B.abs())),
+                            torch.ones((), **kd))
+
+    def infeas_cert(state, state_e):
+        """Per-lane primal-infeasibility certificate from one iteration's
+        dual deltas (the adjoint restricted to the dynamics-feasible
+        subspace; the support carries the offset ``<dy, C w>`` of the
+        current LQR iterate)."""
+        dyX = state_e[2] - state[2]
+        dyU = state_e[3] - state[3]
+        dyS = state_e[5] - state[5]
+        X, U = state_e[6], state_e[7]
+        dy_norm = torch.maximum(torch.maximum(_lane_max(dyX.abs()),
+                                              _lane_max(dyU.abs())),
+                                _lane_max(dyS.abs()))
+        if rows is not None:
+            gx = torch.einsum("bkrx,bkr->bkx", rows.Cx, dyS)
+            gu = torch.einsum("bkru,bkr->bku", rows.Cu, dyS)
+        lam = dyX[:, N]
+        adj = torch.zeros((nb,), **kd)
+        for k in range(N - 1, -1, -1):
+            r_u = _mtv(sqp.B[:, k], lam) + dyU[:, k]
+            lam_k = _mtv(sqp.A[:, k], lam) + dyX[:, k]
+            if rows is not None:
+                r_u = r_u + gu[:, k]
+                lam_k = lam_k + gx[:, k]
+            adj = torch.maximum(adj, r_u.abs().amax(-1))
+            lam = lam_k
+        zero = torch.zeros((), **kd)
+        dX = dyX[:, 1:]
+        sup = (_lane_sum(torch.where(dX > 0, sqp.xub[:, 1:], zero) * dX
+                         + torch.where(dX < 0, sqp.xlb[:, 1:], zero) * dX)
+               + _lane_sum(torch.where(dyU > 0, sqp.uub, zero) * dyU
+                           + torch.where(dyU < 0, sqp.ulb, zero) * dyU))
+        off = _lane_sum(dX * X[:, 1:]) + _lane_sum(dyU * U)
+        if rows is not None:
+            sup = sup + _lane_sum(
+                torch.where(dyS > 0, rows.shi, zero) * dyS
+                + torch.where(dyS < 0, rows.slo, zero) * dyS)
+            off = off + _lane_sum(dyS * rows.eval(X, U))
+        tiny = 1e-30
+        prim = ((adj <= options.eps_prim_inf * a_scale
+                 * dy_norm.clamp_min(tiny))
+                & (sup - off <= -1e-3 * dy_norm) & (dy_norm > tiny))
+        return torch.where(prim, STATUS_PRIMAL_INFEASIBLE, 0).to(torch.int32)
+
+    izero = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    state = warm0 + warm0[:2]
+    if options.early_exit:
+        # chunks of check_interval iterations, one residual check each;
+        # a lane stops updating once it converged or confirmed a
+        # certificate (the vmapped while-loop's per-lane select)
+        chunk = max(1, min(int(options.check_interval),
+                           int(options.max_iter)))
+        done = torch.zeros((nb,), dtype=torch.bool, device=dev)
+        iters, infeas_code, pend = izero, izero, izero
+        while True:
+            active = (~done) & (iters < options.max_iter)
+            if not bool(active.any()):
+                break
+            todo = min(chunk, int(options.max_iter)
+                       - int(iters[active].max()))
+            new = state
+            for _ in range(todo):
+                new = one_iter(new)
+            conv = residuals(new)[2]
+            if options.infeasibility_detection:
+                infeas = infeas_cert(new, one_iter(new))
+            else:
+                infeas = izero
+            confirmed = torch.where((infeas > 0) & (infeas == pend),
+                                    infeas, izero)
+            sel = lambda a, b: torch.where(
+                active.view((nb,) + (1,) * (a.dim() - 1)), a, b)
+            state = tuple(sel(a, b) for a, b in zip(new, state))
+            done = sel(conv | (confirmed > 0), done)
+            iters = sel(iters + todo, iters)
+            infeas_code = sel(torch.maximum(infeas_code, confirmed),
+                              infeas_code)
+            pend = sel(infeas, pend)
+    else:
+        for _ in range(int(options.max_iter)):
+            state = one_iter(state)
+        iters = torch.full((nb,), int(options.max_iter), dtype=torch.int32,
+                           device=dev)
+        if options.infeasibility_detection:
+            # one extra iteration's dual deltas are the certificate
+            # directions; two consecutive ones must agree
+            state_e = one_iter(state)
+            state_e2 = one_iter(state_e)
+            a = infeas_cert(state, state_e)
+            b = infeas_cert(state_e, state_e2)
+            infeas_code = torch.where((a > 0) & (a == b), a, izero)
+        else:
+            infeas_code = izero
+    return _result(sqp, rows, state[6], state[7], state[:6],
+                   residuals(state), iters, infeas_code, single,
+                   return_warm)
+
+
+def _dual_scale(sqp: StagewiseQP) -> Tensor:
+    """Natural scale of the stagewise gradient, per lane of a batched
+    problem (scalar for one problem)."""
+    single = sqp.A.dim() == 3
+    s = _lead(sqp) if single else sqp
+    one = torch.ones((), dtype=s.A.dtype, device=s.A.device)
+    out = torch.maximum(
+        torch.maximum(_lane_max(s.Qx.abs()), _lane_max(s.Ru.abs())),
+        torch.maximum(torch.maximum(_lane_max(s.qx.abs()),
+                                    _lane_max(s.ru.abs())), one))
+    return out[0] if single else out
+
+
+@highest_precision
+def stagewise_dual_residual(sqp: StagewiseQP, X: Tensor, U: Tensor,
+                            yX: Tensor, yU: Tensor,
+                            yS: Optional[Tensor] = None,
+                            parallel: bool = False) -> Tensor:
+    """True dual (stationarity) residual of the stagewise KKT system.
+
+    The dynamics multipliers are eliminated by the adjoint recursion
+
+        lam_N = Qx_N x_N + qx_N + yX_N
+        lam_k = Qx_k x_k + qx_k + A_k' lam_{k+1} + yX_k [+ Cx_k' yS_k]
+
+    leaving ``r_k = Ru_k u_k + ru_k + B_k' lam_{k+1} + yU_k [+ Cu_k' yS_k]``;
+    returns ``max |r|`` (per lane of a batch).  The reference's
+    ``parallel=True`` computes the same value with a log-depth scan; here
+    both take one reverse loop over stages, batched over lanes, with the
+    lam-free terms formed in bulk first (two fused products per stage).
+    """
+    single = sqp.A.dim() == 3
+    if single:
+        sqp = _lead(sqp)
+        X, U, yX, yU = (a.unsqueeze(0) for a in (X, U, yX, yU))
+        yS = None if yS is None else yS.unsqueeze(0)
+    N = sqp.horizon
+    cx = _mv(sqp.Qx, X) + sqp.qx + yX                     # [B, N+1, x]
+    cu = _mv(sqp.Ru, U) + sqp.ru + yU                     # [B, N, u]
+    if yS is not None and sqp.Cx is not None:
+        cx = torch.cat([cx[:, :-1] + torch.einsum("bkrx,bkr->bkx", sqp.Cx,
+                                                  yS), cx[:, -1:]], dim=1)
+        cu = cu + torch.einsum("bkru,bkr->bku", sqp.Cu, yS)
+    lam = cx[:, N].unsqueeze(-1)                          # [B, x, 1]
+    r_u = [None] * N
+    for k in range(N - 1, -1, -1):
+        r_u[k] = torch.baddbmm(cu[:, k].unsqueeze(-1), sqp.B[:, k].mT, lam)
+        lam = torch.baddbmm(cx[:, k].unsqueeze(-1), sqp.A[:, k].mT, lam)
+    out = _lane_max(torch.stack(r_u, dim=1).abs())
+    return out[0] if single else out
+
+
+def solve_mpc_stagewise(system: System,
+                        costs: Sequence[CostFunction] = (),
+                        constraints: Sequence[Constraint] = (),
+                        options: SolverOptions = SolverOptions(),
+                        warm_start=None,
+                        parallel_scan: bool = False):
+    """One-call stagewise solve: :func:`from_mpc` then
+    :func:`solve_stagewise`."""
+    sqp = from_mpc(system, costs, constraints)
+    return solve_stagewise(sqp, options, warm_start, parallel_scan)
+
+
+def stack_stagewise(sqps: Sequence[StagewiseQP],
+                    repeats: int = 1) -> StagewiseQP:
+    """Stack per-lane problems into one batch; ``repeats`` tiles the
+    stacked lanes (``[sqp_x, sqp_y]`` with ``repeats=R`` -> 2R lanes)."""
+    fields = {}
+    for f in dataclasses.fields(StagewiseQP):
+        vals = [getattr(s, f.name) for s in sqps]
+        if vals[0] is None:
+            fields[f.name] = None
+            continue
+        st = torch.stack(vals)
+        fields[f.name] = st.repeat((repeats,) + (1,) * (st.dim() - 1))
+    return StagewiseQP(**fields)
+
+
+def stagewise_scales(sqp: StagewiseQP,
+                     sample_lanes: int = 4) -> Tuple[Tensor, Tensor]:
+    """Curvature-based diagonal equilibration scales ``(Dx, Du)``.
+
+    ``Du = diag(F_k)^(-1/2)`` (inner control Hessians) and ``Dx =
+    diag(V_k)^(-1/2)`` (value Hessians) of the unconstrained Riccati
+    recursion, geometric-averaged over stages and over ``sample_lanes``
+    lanes of a batch.  Computed on the host in f64; pair with
+    :func:`scale_stagewise`.
+    """
+    batched = sqp.A.dim() == 4
+    np64 = lambda t: t.detach().cpu().numpy().astype(np.float64)
+    A = np64(sqp.A if batched else sqp.A[None])
+    Bm = np64(sqp.B if batched else sqp.B[None])
+    Qx = np64(sqp.Qx if batched else sqp.Qx[None])
+    Ru = np64(sqp.Ru if batched else sqp.Ru[None])
+    nb = A.shape[0]
+    idx = np.unique(np.linspace(0, nb - 1,
+                                min(sample_lanes, nb)).astype(int))
+    A, Bm, Qx, Ru = A[idx], Bm[idx], Qx[idx], Ru[idx]
+    nl, N, x = A.shape[0], A.shape[1], A.shape[2]
+    u = Bm.shape[3]
+    logF = np.zeros(u)
+    logV = np.zeros(x)
+    for li in range(nl):
+        V = Qx[li, -1].copy()
+        dF = np.zeros((N, u))
+        dV = np.zeros((N + 1, x))
+        dV[N] = np.diag(V)
+        for k in range(N - 1, -1, -1):
+            BtV = Bm[li, k].T @ V
+            F = Ru[li, k] + BtV @ Bm[li, k]
+            G = BtV @ A[li, k]
+            K = -np.linalg.solve(F, G)
+            V = Qx[li, k] + A[li, k].T @ V @ A[li, k] + G.T @ K
+            V = 0.5 * (V + V.T)
+            dF[k] = np.diag(F)
+            dV[k] = np.diag(V)
+        logF += np.mean(np.log(np.maximum(dF, 1e-30)), axis=0) / nl
+        logV += np.mean(np.log(np.maximum(dV, 1e-30)), axis=0) / nl
+    kd = dict(dtype=sqp.A.dtype, device=sqp.A.device)
+    return (torch.tensor(np.exp(-0.5 * logV), **kd),
+            torch.tensor(np.exp(-0.5 * logF), **kd))
+
+
+def scale_stagewise(sqp: StagewiseQP, Dx: Tensor, Du: Tensor
+                    ) -> StagewiseQP:
+    """Exact diagonal reparametrization ``x' = x / Dx``, ``u' = u / Du``
+    (single or batched problems).  ``X = X' * Dx``, ``U = U' * Du``; row
+    values are invariant, so ``clo``/``chi`` are unchanged."""
+    Dxi, Dui = 1.0 / Dx, 1.0 / Du
+    r = sqp.nr_rows
+    return dataclasses.replace(
+        sqp,
+        A=Dxi[:, None] * sqp.A * Dx[None, :],
+        B=Dxi[:, None] * sqp.B * Du[None, :],
+        d=sqp.d * Dxi, x0=sqp.x0 * Dxi,
+        Qx=Dx[:, None] * sqp.Qx * Dx[None, :], qx=sqp.qx * Dx,
+        Ru=Du[:, None] * sqp.Ru * Du[None, :], ru=sqp.ru * Du,
+        xlb=sqp.xlb * Dxi, xub=sqp.xub * Dxi,
+        ulb=sqp.ulb * Dui, uub=sqp.uub * Dui,
+        Cx=(sqp.Cx * Dx[None, :]) if r else sqp.Cx,
+        Cu=(sqp.Cu * Du[None, :]) if r else sqp.Cu)
+
+
+def _resolve_auto_backend(sqp: StagewiseQP, parallel_scan: bool) -> str:
+    """``backend='auto'``: the fused kernel for a problem on a CUDA device
+    inside the kernel's envelope, the plain batched path otherwise; outside
+    the envelope it warns (an explicit ``backend='fused'`` raises)."""
+    if parallel_scan or sqp.A.device.type != "cuda":
+        return "xla"
+    from ..ops.stagewise_kernel import check_fused_envelope
+    try:
+        check_fused_envelope(sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows,
+                             sqp.A.dtype)
+    except ValueError as e:
+        warnings.warn(
+            f"backend='auto': the fused stagewise tick kernel cannot serve "
+            f"this problem size; falling back to backend='xla'. ({e})",
+            RuntimeWarning, stacklevel=3)
+        return "xla"
+    return "fused"
+
+
+def _scale_io(scale, x0):
+    """Scale x0 into the equilibrated space; return (x0', unscale_fn)."""
+    if scale is None:
+        return x0, lambda out: out
+    Dx_s, Du_s = scale
+
+    def unscale(out):
+        X, U, info, warm = out
+        X = X * Dx_s
+        U = U * Du_s
+        info = dataclasses.replace(info, x=U.reshape(U.shape[:-2] + (-1,)))
+        return X, U, info, warm
+
+    return x0 / Dx_s, unscale
+
+
+def _fused_tick_exec(plan, sqp, scale, x0, warm, options):
+    """One fused-kernel tick over a batched (scaled) problem."""
+    from ..ops.stagewise_kernel import solve_stagewise_fused
+    x0, unscale = _scale_io(scale, x0)
+    s = dataclasses.replace(sqp, x0=x0)
+    out = solve_stagewise_fused(s, options, warm_start=warm,
+                                return_warm=True,
+                                plan=dataclasses.replace(plan, sqp=s))
+    return unscale(out)
+
+
+def _xla_tick_exec(sqp, scale, x0, warm, options):
+    """One tick of the plain batched path (the reference's XLA backend):
+    lockstep fixed count across lanes, then the batch-level top-up."""
+    opts = options.replace(early_exit=False)
+    x0, unscale = _scale_io(scale, x0)
+    s = dataclasses.replace(sqp, x0=x0)
+    out = solve_stagewise(s, opts, warm_start=warm, return_warm=True)
+    return unscale(_xla_topup(s, opts, out))
+
+
+def _xla_topup(s, opts, out):
+    """When any lane's delivered status is non-converged after the fixed
+    count, continue all lanes from the delivered warm state for
+    ``opts.topup_iters`` more iterations (converged lanes sit at their
+    fixed point); a tick where the whole fleet converged skips it."""
+    topup = int(getattr(opts, "topup_iters", 0))
+    if topup <= 0 or not bool((out[2].status == STATUS_MAX_ITER).any()):
+        return out
+    # seed="zero": a pure continuation of the delivered split state
+    t_opts = opts.replace(max_iter=topup, seed="zero", topup_iters=0)
+    return solve_stagewise(s, t_opts, warm_start=out[3], return_warm=True)
+
+
+def _leaf_shapes(sqp: StagewiseQP):
+    return tuple(None if getattr(sqp, f.name) is None else
+                 (tuple(getattr(sqp, f.name).shape),
+                  getattr(sqp, f.name).dtype)
+                 for f in dataclasses.fields(StagewiseQP))
+
+
+class StagewiseTick:
+    """Callable serving facade built by :func:`make_stagewise_step`.
+
+    ``tick(x0, warm) -> (X, U, info, warm)``; :meth:`replan` swaps the
+    problem data in place (same shapes and dtype: a footstep replan, gait
+    retarget or model drift) at plan-rebuild cost, and the first post-swap
+    tick with a carried warm tuple runs the ``swap_options`` budget.
+    """
+
+    def __init__(self, sqp_scaled: StagewiseQP, batched: bool,
+                 backend: str, options: SolverOptions,
+                 cold_options: SolverOptions,
+                 swap_options: SolverOptions, scale):
+        self._batched = batched
+        self._backend = backend
+        self._options = options
+        self._cold_options = cold_options
+        self._swap_options = swap_options
+        self._scale = scale
+        self._swap_pending = False
+        self._shapes = _leaf_shapes(sqp_scaled)
+        self._set_problem(sqp_scaled)
+
+    @property
+    def backend(self) -> str:
+        return self._backend
+
+    def _set_problem(self, sqp_scaled: StagewiseQP) -> None:
+        self._sqp = sqp_scaled
+        if self._backend == "fused":
+            from ..ops.stagewise_kernel import build_fused_plan
+            self._plans = {}
+            for opts in (self._options, self._cold_options,
+                         self._swap_options):
+                key = self._plan_key(opts)
+                if key not in self._plans:
+                    self._plans[key] = build_fused_plan(sqp_scaled, opts)
+
+    @staticmethod
+    def _plan_key(opts: SolverOptions):
+        # the plan tensors depend only on these option fields
+        return tuple(getattr(opts, f) for f in
+                     ("rho", "sigma", "rho_eq_scale", "seed",
+                      "polish_iters"))
+
+    def _run(self, opts: SolverOptions, x0, warm):
+        if self._backend == "fused":
+            return _fused_tick_exec(self._plans[self._plan_key(opts)],
+                                    self._sqp, self._scale, x0, warm, opts)
+        return _xla_tick_exec(self._sqp, self._scale, x0, warm, opts)
+
+    def __call__(self, x0, warm=None):
+        if not self._batched:
+            x0 = x0[None]
+        if warm is None:
+            out = self._run(self._cold_options, x0, None)
+        elif self._swap_pending:
+            # first post-swap tick: carried duals + the swap budget
+            out = self._run(self._swap_options, x0, warm)
+        else:
+            out = self._run(self._options, x0, warm)
+        self._swap_pending = False
+        if not self._batched:
+            # the warm tuple keeps its lane axis (opaque, fed back as is)
+            X, U, info, warm = out
+            info = QPSolution(**{f.name: getattr(info, f.name)[0]
+                                 for f in dataclasses.fields(QPSolution)})
+            out = (X[0], U[0], info, warm)
+        return out
+
+    def replan(self, sqp_new: StagewiseQP, *,
+               swap_budget: bool = True) -> None:
+        """Swap the problem data (same shapes and dtypes) behind the tick.
+
+        Rebuilds only the data-dependent plan tensors; the measured scale
+        and every option stay.  The next call with a carried ``warm`` runs
+        the ``swap_options`` budget once (``swap_budget=False`` disables
+        it).  Raises :class:`~copra_tpu_torch.errors.DimensionError` when
+        the shapes or dtypes differ: that is a new facade, not a replan.
+        """
+        if not self._batched and sqp_new.A.dim() == 3:
+            sqp_new = _lead(sqp_new)
+        if _leaf_shapes(sqp_new) != self._shapes:
+            raise DimensionError(
+                "StagewiseTick.replan: the new problem's shapes/dtypes "
+                "differ from the facade's — build a new facade with "
+                "make_stagewise_step instead.  (A replan is a same-shape "
+                "DATA swap: new footsteps, references, bounds, or "
+                "drifted dynamics.)")
+        if self._scale is not None:
+            sqp_new = scale_stagewise(sqp_new, *self._scale)
+        self._set_problem(sqp_new)
+        self._swap_pending = bool(swap_budget)
+
+
+def make_stagewise_step(sqp: StagewiseQP,
+                        options: SolverOptions = SolverOptions(),
+                        cold_options: Optional[SolverOptions] = None,
+                        parallel_scan: bool = False,
+                        backend: str = "auto",
+                        scaling="none",
+                        swap_options: Optional[SolverOptions] = None
+                        ) -> StagewiseTick:
+    """Serving facade for the stagewise engine (the config-5/6 pattern).
+
+    Returns ``tick(x0, warm) -> (X, U, info, warm)`` over a batched
+    ``sqp`` (leading lane axis on every leaf; ``x0 [B, x]``).  The first
+    call (``warm=None``) runs ``cold_options`` (default: ``options`` with
+    10x the iteration budget); later calls run ``options`` with the
+    carried warm tuple, plus ``options.topup_iters`` more iterations for
+    the whole batch when any lane missed the tolerance.
+
+    ``backend``: ``"fused"`` runs the iterations through the hand-written
+    CUDA tick kernel (``ops.stagewise_kernel``; its plain PyTorch version
+    on CPU tensors), ``"xla"`` the plain batched :func:`solve_stagewise`
+    path (the reference's XLA backend), ``"auto"`` (default) the kernel
+    for a problem on a CUDA device inside the kernel's envelope.
+
+    With ``scaling='auto'`` (or an explicit ``(Dx, Du)`` pair) the problem
+    is equilibrated once at build; ticks take and return original units,
+    but the warm tuple and the reported residuals and statuses live in the
+    scaled space.
+    """
+    if backend == "fused" and parallel_scan:
+        raise ValueError(
+            "make_stagewise_step(backend='fused', parallel_scan=True) is "
+            "contradictory: the fused tick kernel runs the serial "
+            "lane-batched sweeps.  Use backend='xla' for the "
+            "associative-scan path, or drop parallel_scan for the kernel.")
+    if parallel_scan:
+        raise NotImplementedError(_PARALLEL_SCAN)
+    if backend not in ("auto", "fused", "xla"):
+        raise ValueError(f"backend must be 'auto', 'fused' or 'xla', got "
+                         f"{backend!r}")
+    if cold_options is None:
+        cold_options = options.replace(max_iter=10 * options.max_iter)
+    batched = sqp.A.dim() == 4
+
+    scale = None
+    if isinstance(scaling, str) and scaling == "auto":
+        scale = stagewise_scales(sqp)
+    elif isinstance(scaling, tuple):
+        scale = scaling
+    if scale is not None:
+        sqp = scale_stagewise(sqp, *scale)
+    if backend == "auto":
+        backend = _resolve_auto_backend(sqp, parallel_scan)
+    elif backend == "fused" and sqp.A.device.type == "cuda":
+        from ..ops.stagewise_kernel import check_fused_envelope
+        check_fused_envelope(sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows,
+                             sqp.A.dtype)
+    if backend != "fused" and getattr(options, "polish_iters", 0) > 0:
+        warnings.warn(
+            "make_stagewise_step: options.polish_iters is a fused-backend "
+            "feature (not yet ported, ROADMAP item 8); this tick serves "
+            "the plain iteration.", stacklevel=2)
+    sqp_b = sqp if batched else _lead(sqp)
+    if swap_options is None:
+        swap_options = cold_options
+    return StagewiseTick(sqp_b, batched, backend, options, cold_options,
+                         swap_options, scale)

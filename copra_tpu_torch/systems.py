@@ -22,7 +22,7 @@ from typing import Union
 import torch
 
 from ._precision import highest_precision
-from ._tensors import as_tensor, common
+from ._tensors import as_tensor, common, matvec
 from .errors import DimensionError, bad_dim
 
 Tensor = torch.Tensor
@@ -163,11 +163,6 @@ class LTVSystem:
 System = Union[LTISystem, LTVSystem]
 
 
-def _matvec(M: Tensor, v: Tensor) -> Tensor:
-    """``M @ v`` over trailing dims, batch dims broadcast."""
-    return (M @ v.unsqueeze(-1)).squeeze(-1)
-
-
 @dataclasses.dataclass(frozen=True)
 class Preview:
     """Condensed preview matrices: ``X = Phi @ x0 + Psi @ U + xi``.
@@ -222,14 +217,14 @@ class Preview:
         extra leading dimensions of ``x0`` broadcast against the batch."""
         Phi, x0, xi = common(self.Phi, as_tensor(x0), self.xi,
                              device=self.Phi.device)
-        return _matvec(Phi, x0) + xi
+        return matvec(Phi, x0) + xi
 
     def trajectory(self, x0: Tensor, U: Tensor) -> Tensor:
         """Reconstruct ``X`` from a control sequence."""
         Phi, Psi, x0, U, xi = common(self.Phi, self.Psi, as_tensor(x0),
                                      as_tensor(U), self.xi,
                                      device=self.Phi.device)
-        return _matvec(Phi, x0) + _matvec(Psi, U) + xi
+        return matvec(Phi, x0) + matvec(Psi, U) + xi
 
 
 @highest_precision
@@ -251,7 +246,7 @@ def condense_lti(A, B, d, horizon: int) -> Preview:
     for _ in range(N):
         imps.append(imp)
         phi = A @ phi
-        xi_k = _matvec(A, xi_k) + d
+        xi_k = matvec(A, xi_k) + d
         imp = A @ imp
         phis.append(phi)
         xis.append(xi_k)
@@ -295,7 +290,7 @@ def condense_ltv(A, B, d) -> Preview:
         # equals the reference's A_k @ psi + B_k @ sel_k bit for bit
         psi = A_k @ psi
         psi[..., k * u:(k + 1) * u] += B[..., k, :, :]
-        xi_k = _matvec(A_k, xi_k) + d[..., k, :]
+        xi_k = matvec(A_k, xi_k) + d[..., k, :]
         phis.append(phi)
         psis.append(psi)
         xis.append(xi_k)
@@ -339,5 +334,5 @@ def replay_dynamics(system: System, X, U) -> Tensor:
     if isinstance(system, LTISystem):
         pred = Xb[..., :-1, :] @ A.mT + Ub @ B.mT + d.unsqueeze(-2)
     else:
-        pred = _matvec(A, Xb[..., :-1, :]) + _matvec(B, Ub) + d
+        pred = matvec(A, Xb[..., :-1, :]) + matvec(B, Ub) + d
     return torch.max(torch.abs(Xb[..., 1:, :] - pred))
