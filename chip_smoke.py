@@ -32,11 +32,50 @@ Phases, one line or more each:
 7. config 5 (the bipedal ZMP preview of ``bench_all.py``: x = 3, u = 1,
    two ZMP rows per stage, N = 300, 256 robots = 512 lanes, eps_abs 1e-6,
    rho 1.0, 300 cold and 20 warm iterations with an 80-iteration top-up),
-   the same fields, gated on lanes 0 and 1.
+   the same fields, gated on lanes 0 and 1;
+8. the shared box-ADMM kernel against its plain version on config 1's
+   operators (n = 10) and the roofline fleet's (n = 256), B = 4096, with
+   distinct non-zero c, x0, y0, z0: refine = 0 at the serving rho and
+   refine = 1 at rho = 1.0 (at the serving rho f32 refinement parts two
+   summation orders by cond(K) eps, see phase 3), within 2e-4 x max(1, max
+   |plain|); kernel, plain and bound times;
+9. the shared general-ADMM kernel against its plain version on config 2's
+   operators (B = 4096, 400 iterations, refine = 1) at the serving rho
+   and at rho = 1.0, with distinct non-zero e0, y0, z0, the same
+   tolerance and fields, and each one's distance from the f64 iteration;
+10. ``bench_all.py``'s config 1 (LTI double integrator, N = 10, B = 4096,
+    +-2 control bounds, accurate tick, 300 iterations x 3 rounds, rho from
+    ``auto_rho``) served on its shared plan: 2 warm-up and 5 timed ticks,
+    lanes 0, 1, 17, 4095 and the worst 3 unconverged lanes gated against
+    the native oracle (<= 1e-5);
+11. ``bench.py``'s shared-plan roofline fleet (LTI point mass, N = 256, B =
+    4096, the 75th-percentile bound, 2 rounds x 30 iterations): 2 + 20
+    accurate ticks gated on lanes 0, 1, 17, 4095 (<= 1e-5); then the same
+    fleet in f32 through the f32 fused tick (default ``use_fused``, the
+    kernel's refine = 1 body, rho from ``auto_rho`` of that step), 2 + 5
+    ticks: finite outputs, statuses 0 or 1 and kernel launches required,
+    its oracle error and converged share printed ungated;
+12. ``bench_all.py``'s config 2 (LTI N = 10, trajectory, control, mixed and
+    bound constraints, B = 4096, 400 iterations) served through
+    ``make_plan_step(use_fused=True)`` after ``auto_rho(use_fused=True)``:
+    2 + 5 ticks gated like config 1; the same ticks through
+    ``use_fused=False`` (the plain general step on the card) printed
+    beside them, ungated;
+13. config 4 in f32 through the f32 fused tick (default ``use_fused``: the
+    per-lane kernel's general body; rho from ``auto_rho`` of that step, as
+    ``bench.py``'s plan mode): the kernel against its plain version at the
+    serving rho, then 2 + 5 ticks: finite outputs, statuses 0 or 1 and
+    launches required, its oracle error printed.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero, as does a
-run without a CUDA device or outside the repository.
+Every served path runs with the launch counts set to 0 just before it and
+read just after, and fails if its kernel was never launched.  The line
+before the last is the kernels' JSON record: per kernel its source, the
+TPU kernel it replaces, launches on its served paths, its distance from
+its plain version, its time, the plain version's, and its bound (the
+larger of its operations over the 67 TFLOP/s f32 peak and its bytes, each
+input read once and each output written once, over 3.35 TB/s); the last
+line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero, as
+does a run without a CUDA device or outside the repository.
 
     python3 chip_smoke.py
 """
@@ -68,6 +107,20 @@ REL_TOL = 1e-4        # served controls vs the native oracle, relative
 WARMUP_TICKS, TIMED_TICKS = 2, 7
 QUAD_ROBOTS, QUAD_N = 128, 40
 ZMP_ROBOTS, ZMP_N, ZMP_T = 256, 300, 0.005
+
+# the shared-plan paths (phases 8-13)
+SHARED_SOURCE = "copra_tpu_torch/csrc/admm_box_shared.cu"
+GENERAL_SOURCE = "copra_tpu_torch/csrc/admm_general_shared.cu"
+REPLACES_K2 = "copra_tpu/ops/admm_kernel.py:225"
+REPLACES_K3 = "copra_tpu/ops/admm_kernel.py:776"
+REPLACES_K6 = "copra_tpu/ops/admm_kernel.py:889"
+FLEET = 4096
+C1_N, C1_ITERS, C1_ROUNDS = 10, 300, 3
+ROOF_N, ROOF_ITERS, ROOF_ROUNDS, ROOF_TICKS = 256, 30, 2, 20
+C2_N, C2_ITERS = 10, 400
+SHORT_TICKS = 5
+# one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
+F32_PEAK, HBM_RATE = 67e12, 3.35e12
 
 
 def fail(msg: str):
@@ -526,8 +579,9 @@ def build_config5(tt, device):
 def stagewise_vs_plain(sk, cfg):
     """The tick kernel against its plain version on the served plan of
     ``cfg``, from the warm tuple a cold serving tick delivers, with the
-    serving iteration count.  Returns ``(entry, f32 err, f32 bound, f64
-    err, f32 kernel ms, f32 plain ms, f64 kernel ms)``."""
+    serving iteration count.  Returns ``(entry, f32 err, f32 tolerance,
+    f64 err, f32 kernel ms, f32 plain ms, f64 kernel ms, f32 (bound_ms,
+    bound_by))``."""
     import torch
 
     tick, opts = cfg["tick"], cfg["opts"]
@@ -559,10 +613,13 @@ def stagewise_vs_plain(sk, cfg):
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         scale = max(1.0, max(float(w.abs().max()) for w in want))
         out[dt] = (err, scale, ev[0].elapsed_time(ev[1]),
-                   _cuda_ms(lambda: entry(*args, **kw), 5))
-    err32, scale32, plain_ms, ms = out[torch.float32]
+                   _cuda_ms(lambda: entry(*args, **kw), 5),
+                   _nbytes(*args, *got))
+    err32, scale32, plain_ms, ms, nbytes = out[torch.float32]
+    bnd = bound(stagewise_flops(N, x, u, r, opts.max_iter, x0.shape[0]),
+                nbytes)
     return (entry.__name__, err32, F32_RTOL * scale32, out[torch.float64][0],
-            ms, plain_ms, out[torch.float64][3])
+            ms, plain_ms, out[torch.float64][3], bnd)
 
 
 def serve_stagewise(sk, cfg):
@@ -622,6 +679,527 @@ def gate_stagewise(cfg, U):
     return err / scale, err
 
 
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for a kernel's work.
+# ---------------------------------------------------------------------------
+
+
+def bound(flops: float, nbytes: float):
+    """``(bound_ms, bound_by)``: the larger of operations over the f32 peak
+    and bytes over the memory rate."""
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def box_work(B: int, n: int, n_iter: int, refine: int, body: str,
+             per_lane: bool):
+    """Operations and bytes of one box-ADMM call: ``body`` "x0_zero" (the
+    K-free iteration, Kinv only), "qx" (g = Q x0, K only) or "general"
+    (Kinv and K, refine steps, g from K).  ~12 operations per coordinate
+    per iteration outside the products; inputs read once (the vectors the
+    body reads), four [B, n] outputs written once."""
+    products = {"x0_zero": n_iter, "qx": 1,
+                "general": n_iter * (1 + 2 * refine) + 1}[body]
+    flops = products * 2.0 * B * n * n + n_iter * 12.0 * B * n
+    ops = {"x0_zero": 1, "qx": 1, "general": 2}[body] * (B if per_lane
+                                                           else 1)
+    vecs_in = {"x0_zero": 5, "qx": 3, "general": 6}[body]
+    return flops, 4.0 * (ops * n * n + (vecs_in + 4) * B * n)
+
+
+def general_work(B: int, n: int, m: int, n_iter: int, refine: int):
+    """Operations and bytes of one shared general-ADMM call: per lane and
+    iteration w C and e_t C' (2mn each), (1 + 2 refine) products with an
+    [n, n] operator, ~14 operations per row and 5 per column; inputs C,
+    Kinv, K, rho, l, u, e0, y0, z0 read once, e, y, z written once."""
+    flops = n_iter * B * (4.0 * m * n + 2.0 * n * n * (1 + 2 * refine)
+                          + 14.0 * m + 5.0 * n)
+    nbytes = 4.0 * (2 * m * n + 2 * n * n + m + B * (4 * m + n)
+                    + B * (2 * m + n))
+    return flops, nbytes
+
+
+def stagewise_flops(N: int, x: int, u: int, r: int, n_iter: int,
+                    lanes: int) -> float:
+    """Operations of the stagewise tick kernel: per lane, iteration and
+    stage, the backward step (shifted costs, rows, B'v, nF h, A'v + K'h)
+    and the forward step (K x, projections, rows, A x + B u), as
+    ``csrc/stagewise_tick.cu`` computes them."""
+    per_stage = (4 * x * x + 8 * x * u + 2 * u * u + 4 * r * (x + u)
+                 + 11 * x + 11 * u + 10 * r)
+    return float(per_stage) * N * n_iter * lanes
+
+
+def _nbytes(*ts) -> float:
+    return float(sum(t.numel() * t.element_size() for t in ts))
+
+
+# ---------------------------------------------------------------------------
+# The shared-plan paths: fleets (copies of bench_all.py's config 1 and 2
+# and of bench.py's roofline point), the kernels against their
+# plain versions, and phases 8-13.
+# ---------------------------------------------------------------------------
+
+
+def double_integrator(T: float = 0.1):
+    """``bench_all.py:_double_integrator``."""
+    return (np.array([[1.0, T], [0.0, 1.0]]), np.array([[0.5 * T * T], [T]]),
+            np.zeros(2))
+
+
+def f32_plan(plan):
+    """The plan with every tensor field in float32."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(plan, **{
+        f.name: getattr(plan, f.name).float()
+        for f in dataclasses.fields(plan)
+        if isinstance(getattr(plan, f.name), torch.Tensor)})
+
+
+def _drifting(x0s, rng, ticks: int, device):
+    import torch
+
+    drift = rng.normal(scale=0.02, size=(ticks + 2,) + x0s.shape).cumsum(0)
+    x0_seq = (x0s[None] + drift).astype(np.float32)
+    return [torch.tensor(x, device=device) for x in x0_seq]
+
+
+def build_config1(tt, device, batch: int = 0):
+    """``bench_all.py:config1``: LTI double integrator N = 10, a full-size
+    position TrajectoryCost, a small control cost, +-2 control bounds,
+    the accurate tick at 300 iterations x 3 rounds, rho from ``auto_rho``
+    (seed centre at the fleet mean)."""
+    import torch
+
+    N, batch = C1_N, batch or FLEET
+    A, B, d = double_integrator()
+    rng = np.random.default_rng(1)
+    x0s = np.array([1.0, 0.0])[None] + rng.normal(scale=[0.3, 0.2],
+                                                  size=(batch, 2))
+    t0 = time.perf_counter()
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(x0s[0]), N)
+    pos_row = tt.span_matrix(f32([[1.0, 0.0]]), N + 1)
+    costs = (tt.TrajectoryCost(M=pos_row, p=f32(np.zeros(N + 1)),
+                               weights=f32(np.full(N + 1, 10.0))),
+             tt.SimpleControlCost(p=f32(np.zeros(N)),
+                                  weights=f32(np.full(N, 1e-3))))
+    plan = tt.make_control_plan(
+        system, costs, (tt.ControlBoundConstraint.create([-2.0], [2.0]),))
+    opts = tt.SolverOptions(max_iter=C1_ITERS, early_exit=False,
+                            polish=False)
+    center = x0s.mean(0)
+    opts = opts.replace(rho=tt.auto_rho(plan, x0s, opts, seed_center=center,
+                                        accurate=True,
+                                        accurate_rounds=C1_ROUNDS))
+    step = tt.make_plan_step(plan, opts, batched=True, seed_center=center,
+                             accurate=True, accurate_rounds=C1_ROUNDS)
+    torch.cuda.synchronize()
+    return dict(name="config 1", plan=plan, opts=opts, step=step,
+                x0s=x0s, x0_seq=_drifting(x0s, rng, SHORT_TICKS, device),
+                ticks=SHORT_TICKS, setup_s=time.perf_counter() - t0)
+
+
+def build_roofline(tt, device, batch: int = 0, horizon: int = 0):
+    """``bench.py:run_roofline``: one LTI point-mass plan (N = 256) for a
+    fleet of states, the 75th percentile of the fleet's unconstrained |u|
+    as a binding bound, the accurate tick at 2 rounds x 30 iterations."""
+    import torch
+
+    batch, horizon = batch or FLEET, horizon or ROOF_N
+    T, mass = 0.005, 5.0
+    A = np.array([[1.0, T], [0.0, 1.0]])
+    Bm = np.array([[0.5 * T * T / mass], [T / mass]])
+    d = np.array([-9.81 / 2.0 * T * T, -9.81 * T])
+    rng = np.random.default_rng(42)
+    x0s = np.array([0.0, -1.5])[None] + rng.normal(scale=[0.02, 0.1],
+                                                   size=(batch, 2))
+    t0 = time.perf_counter()
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    system = tt.LTISystem.create(f32(A), f32(Bm), f32(d), f32(x0s[0]),
+                                 horizon)
+    costs = (tt.TargetCost.create(np.eye(2), [0.0, -1.0],
+                                  weights=[10.0, 1e4]),
+             tt.ControlCost.create([[1.0]], [2.0], weights=[1e-4]))
+    sm = tt.make_seed_map(tt.make_control_plan(system, costs, ()),
+                          keep_f64=True)
+    useed = sm.u0.cpu().numpy()[None] + x0s @ sm.Umap.cpu().numpy()
+    bnd = float(np.quantile(np.abs(useed), 0.75))
+    plan = tt.make_control_plan(
+        system, costs, (tt.ControlBoundConstraint.create([-bnd], [bnd]),))
+    opts = tt.SolverOptions(max_iter=ROOF_ITERS, early_exit=False,
+                            polish=False)
+    center = x0s.mean(0)
+    opts = opts.replace(rho=tt.auto_rho(plan, x0s, opts, seed_center=center,
+                                        accurate=True,
+                                        accurate_rounds=ROOF_ROUNDS))
+    step = tt.make_plan_step(plan, opts, batched=True, seed_center=center,
+                             accurate=True, accurate_rounds=ROOF_ROUNDS)
+    torch.cuda.synchronize()
+    drift = np.zeros((ROOF_TICKS + 2, batch, 2))
+    drift[:, :, 1] = np.cumsum(
+        rng.normal(scale=0.02, size=(ROOF_TICKS + 2, batch)), axis=0)
+    x0_seq = [torch.tensor((x0s + drift[t]).astype(np.float32),
+                           device=device) for t in range(ROOF_TICKS + 2)]
+    return dict(name="roofline fleet", plan=plan, opts=opts, step=step,
+                x0s=x0s, x0_seq=x0_seq, ticks=ROOF_TICKS, bound=bnd,
+                setup_s=time.perf_counter() - t0)
+
+
+def build_config2(tt, device, batch: int = 0):
+    """``bench_all.py:config2``: LTI double integrator N = 10 with a
+    trajectory, a control, a mixed and two bound constraints, all f32,
+    400 iterations; the general tick through the shared general kernel
+    (``use_fused=True``) with rho from ``auto_rho(use_fused=True)``."""
+    import torch
+
+    N, batch = C2_N, batch or FLEET
+    A, B, d = double_integrator()
+    rng = np.random.default_rng(2)
+    x0s = np.array([1.0, 0.0])[None] + rng.normal(scale=[0.3, 0.2],
+                                                  size=(batch, 2))
+    t0 = time.perf_counter()
+    f32 = lambda a: np.asarray(a, np.float32)
+    system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(x0s[0]), N)
+    costs = (tt.TargetCost.create(f32(np.eye(2)), f32([0.0, 0.0]),
+                                  weights=f32([10.0, 1.0])),
+             tt.ControlCost.create(f32([[1.0]]), f32([0.0]),
+                                   weights=f32([1e-3])))
+    constraints = (
+        tt.TrajectoryConstraint.create(f32([[0.0, 1.0]]), f32([1.5])),
+        tt.ControlConstraint.create(f32([[1.0]]), f32([1.9])),
+        tt.MixedConstraint.create(f32([[1.0, 0.0]]), f32([[0.1]]),
+                                  f32([3.0])),
+        tt.TrajectoryBoundConstraint.create(f32([-5.0, -2.0]),
+                                            f32([5.0, 2.0])),
+        tt.ControlBoundConstraint.create(f32([-2.0]), f32([2.0])))
+    plan = tt.make_control_plan(system, costs, constraints)
+    opts = tt.SolverOptions(max_iter=C2_ITERS, early_exit=False,
+                            polish=False)
+    center = x0s.mean(0)
+    opts = opts.replace(rho=tt.auto_rho(plan, x0s, opts, seed_center=center,
+                                        use_fused=True))
+    step = tt.make_plan_step(plan, opts, batched=True, seed_center=center,
+                             use_fused=True)
+    torch.cuda.synchronize()
+    return dict(name="config 2", plan=plan, opts=opts, step=step, x0s=x0s,
+                center=center, x0_seq=_drifting(x0s, rng, SHORT_TICKS,
+                                                device),
+                ticks=SHORT_TICKS, setup_s=time.perf_counter() - t0)
+
+
+def held(got, want):
+    """``(max |got - want|, tolerance 2e-4 x max(1, max |want|))``, with a
+    shape and finiteness check."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not bool(g.isfinite().all()):
+            fail("kernel output of the wrong shape or not finite")
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    return _max_diff(got, want), KERNEL_TOL * scale
+
+
+def shared_box_vs_plain(ak, cfg):
+    """The shared box kernel against its plain version on ``cfg``'s
+    operators at the serving iteration count, from the first tick's
+    correction bounds and distinct non-zero c, x0, y0, z0: refine = 0 at
+    the serving rho, refine = 1 at rho = 1.0.  Returns ``{case: (err,
+    tol, ms, plain_ms, (bound_ms, bound_by))}``."""
+    import torch
+
+    from copra_tpu_torch.plan import _box_fast_state
+
+    f32, f64 = torch.float32, torch.float64
+    plan, opts = cfg["plan"], cfg["opts"]
+    Kinv, K, seed = cfg["step"].state
+    x0 = cfg["x0_seq"][0]
+    B, n = x0.shape[0], Kinv.shape[-1]
+    xs = seed.seed(x0.to(f64))
+    l = (plan.lb.to(f64) - xs).to(f32)
+    u = (plan.ub.to(f64) - xs).to(f32)
+    rng = np.random.default_rng(n)
+    vec = lambda s: torch.tensor(s * rng.normal(size=(B, n)), dtype=f32,
+                                 device=x0.device)
+    c, x0v, y0 = vec(0.01), vec(0.1), vec(0.1)
+    z0 = torch.clamp(vec(0.1), l, u)
+    Kinv1, K1 = (t.to(f32).contiguous() for t in
+                 _box_fast_state(plan, opts.replace(rho=1.0)))
+    sc = dict(sigma=opts.sigma, alpha=opts.alpha, n_iter=opts.max_iter)
+    out = {}
+    for case, (Ki, Ko, rho, refine) in {
+            "refine 0, serving rho": (Kinv, K, opts.rho, 0),
+            "refine 1, rho 1.0": (Kinv1, K1, 1.0, 1)}.items():
+        args = (Ki, Ko, c, l, u, x0v, y0, z0)
+        kw = dict(sc, rho=rho, refine=refine)
+        got = ak.fused_admm_box_shared(*args, **kw)
+        want = ak.admm_box_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, tol = held(got, want)
+        ms = _cuda_ms(lambda: ak.fused_admm_box_shared(*args, **kw), 10)
+        plain_ms = _cuda_ms(lambda: ak.admm_box_plain(*args, **kw), 3)
+        out[case] = (err, tol, ms, plain_ms, bound(*box_work(
+            B, n, opts.max_iter, refine, "general", per_lane=False)))
+    return out
+
+
+def general_vs_plain(ak, cfg):
+    """The shared general kernel against its plain version on config 2's
+    operators (400 iterations, the serving refine = 1), from the first
+    tick's correction bounds and distinct non-zero e0, y0, z0, at the
+    serving rho and at rho = 1.0; the distance of each from the f64
+    iteration beside it.  Returns ``{case: (err, tol, ms, plain_ms,
+    bound, kernel_vs_f64, plain_vs_f64)}``."""
+    import torch
+
+    from copra_tpu_torch._tensors import matvec
+    from copra_tpu_torch.plan import _general_bounds, _general_fast_state
+
+    f32, f64 = torch.float32, torch.float64
+    plan, opts = cfg["plan"], cfg["opts"]
+    x0 = cfg["x0_seq"][0]
+    rng = np.random.default_rng(5)
+    out = {}
+    for case, o in (("serving rho", opts),
+                    ("rho 1.0", opts.replace(rho=1.0))):
+        C, E, rho_vec, K, Kinv = (t.contiguous() for t in
+                                  _general_fast_state(plan, o))
+        seed = cfg["step"].state[-1]
+        l, u = _general_bounds(plan, E, x0)
+        Cxs = matvec(C, seed.seed(x0))
+        l_e, u_e = (l - Cxs).contiguous(), (u - Cxs).contiguous()
+        B, m, n = l.shape[0], C.shape[0], C.shape[1]
+        vec = lambda k: torch.tensor(0.1 * rng.normal(size=(B, k)),
+                                     dtype=f32, device=x0.device)
+        e0, y0 = vec(n), vec(m)
+        z0 = torch.clamp(vec(m), l_e, u_e)
+        args = (Kinv, K, C, rho_vec, l_e, u_e, e0, y0, z0)
+        kw = dict(n_iter=o.max_iter, sigma=o.sigma, alpha=o.alpha, refine=1)
+        got = ak.fused_admm_general_shared(*args, **kw)
+        want = ak.admm_general_shared_plain(*args, **kw)
+        exact = ak.admm_general_shared_plain(*(a.to(f64) for a in args), **kw)
+        torch.cuda.synchronize()
+        err, tol = held(got, want)
+        ms = _cuda_ms(lambda: ak.fused_admm_general_shared(*args, **kw), 10)
+        plain_ms = _cuda_ms(lambda: ak.admm_general_shared_plain(*args, **kw),
+                            2)
+        out[case] = (err, tol, ms, plain_ms,
+                     bound(*general_work(B, n, m, o.max_iter, 1)),
+                     _max_diff(got, exact), _max_diff(want, exact))
+    return out
+
+
+def serve_plan(tt, cfg, step=None, plan=None):
+    """Serve ``cfg``'s fleet (2 warm-up and ``cfg["ticks"]`` timed ticks)
+    through ``step`` (default: the configuration's own) and gate lanes 0,
+    1, 17, B-1 and the worst 3 unconverged lanes against the native
+    oracle.  Returns ``(u, sol, share, host_ms, dev_ms, err, lanes)``."""
+    step = step or cfg["step"]
+    plan = plan or cfg["plan"]
+    u, sol, share, host_ms, dev_ms = run_ticks(step, plan, cfg["x0_seq"],
+                                               cfg["ticks"])
+    B = u.shape[0]
+    if not bool(u.isfinite().all()):
+        fail(f"{cfg['name']}: non-finite controls")
+    status = sol.status.cpu().numpy()
+    if not np.isin(status, (0, 1)).all():
+        fail(f"{cfg['name']}: statuses outside 0/1")
+    lanes = tuple(sorted({0, 1, 17, B - 1, *sol.failed_lanes(3)}))
+    x0_last = cfg["x0_seq"][cfg["ticks"] + 1].cpu().numpy()
+    err = gate_vs_oracle(tt, plan, u, x0_last, lanes)
+    return u, sol, share, host_ms, dev_ms, err, lanes
+
+
+def k2_vs_plain(ak, step, plan, opts, x0_first):
+    """The per-lane entry point (``fused_admm_box``, the f32 fused tick on
+    per-lane plans) against the plain version on config 4's serving
+    operators in f32, at the serving rho with the tick's refine and
+    distinct non-zero x0, y0, z0.  Returns ``(err, tol, ms, plain_ms,
+    bound)``."""
+    import torch
+
+    f32 = torch.float32
+    Kinv, K, seed = step.state
+    B, n = x0_first.shape[0], Kinv.shape[-1]
+    xs = seed.seed(x0_first.to(seed.u0.dtype))
+    l, u = (plan.lb - xs).to(f32), (plan.ub - xs).to(f32)
+    rng = np.random.default_rng(4)
+    vec = lambda: torch.tensor(0.1 * rng.normal(size=(B, n)), dtype=f32,
+                               device=x0_first.device)
+    zero = torch.zeros_like(l)
+    x0v, y0 = vec(), vec()
+    z0 = torch.clamp(vec(), l, u)
+    refine = max(opts.kkt_refine, 0)
+    args = (Kinv, K, zero, l, u, x0v, y0, z0)
+    kw = dict(n_iter=opts.max_iter, sigma=opts.sigma, alpha=opts.alpha,
+              rho=opts.rho, refine=refine)
+    got = ak.fused_admm_box(*args, **kw)
+    want = ak.admm_box_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, tol = held(got, want)
+    return (err, tol, _cuda_ms(lambda: ak.fused_admm_box(*args, **kw), 20),
+            _cuda_ms(lambda: ak.admm_box_plain(*args, **kw), 5),
+            bound(*box_work(B, n, opts.max_iter, refine, "general",
+                            per_lane=True)))
+
+
+def fast_step(tt, plan, opts, x0s, center):
+    """The f32 fused tick of ``plan`` (default ``use_fused``) at the rho
+    ``auto_rho`` measures for that step, as ``bench.py``'s plan mode
+    builds it.  Returns ``(step, rho)``."""
+    rho = tt.auto_rho(plan, x0s, opts, seed_center=center)
+    return tt.make_plan_step(plan, opts.replace(rho=rho), batched=True,
+                             seed_center=center), rho
+
+
+def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
+                  bnd, library_ms=None):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": library_ms}
+
+
+def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts):
+    """Phases 8-13; returns the kernel records of K2, K3 and K6."""
+    import torch
+
+    cfgs = {}
+    for build_cfg in (build_config1, build_roofline, build_config2):
+        cfg = build_cfg(tt, dev)
+        cfgs[cfg["name"]] = cfg
+        print(f"setup: {cfg['name']}, {cfg['x0_seq'][0].shape[0]} lanes, n = "
+              f"{cfg['plan'].Q.shape[-1]}, plan + auto_rho + step in "
+              f"{cfg['setup_s']:.2f} s, rho={cfg['opts'].rho:.6g}, "
+              f"{cfg['opts'].max_iter} iterations")
+    c1, roof, c2 = cfgs["config 1"], cfgs["roofline fleet"], cfgs["config 2"]
+
+    # phase 8: the shared box kernel against its plain version
+    k3 = {}
+    for cfg in (c1, roof):
+        for case, (err, tol, ms, plain_ms, bnd) in shared_box_vs_plain(
+                ak, cfg).items():
+            k3[(cfg["name"], case)] = (err, ms, plain_ms, bnd)
+            print(f"kernel fused_admm_box_shared ({cfg['name']} operators, "
+                  f"n = {cfg['plan'].Q.shape[-1]}, B = {FLEET}, "
+                  f"{cfg['opts'].max_iter} iterations, {case}): max_abs_err "
+                  f"{err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+            if not err <= tol:
+                fail(f"fused_admm_box_shared ({cfg['name']}, {case}) "
+                     f"disagrees with the plain version")
+
+    # phase 9: the shared general kernel against its plain version
+    k6 = general_vs_plain(ak, c2)
+    for case, (err, tol, ms, plain_ms, bnd, k64, p64) in k6.items():
+        print(f"kernel fused_admm_general_shared (config 2 operators, n = "
+              f"{c2['plan'].Q.shape[-1]}, m = {c2['step'].state[0].shape[0]}"
+              f", B = {FLEET}, {C2_ITERS} iterations, refine 1, {case}): "
+              f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"distance from the f64 iteration: kernel {k64:.3e}, plain "
+              f"{p64:.3e}")
+        if not err <= tol:
+            fail(f"fused_admm_general_shared ({case}) disagrees with the "
+                 f"plain version")
+
+    def report(cfg, label, kernel, n, out):
+        u, sol, share, host_ms, dev_ms, err, lanes = out
+        print(f"main path {cfg['name']}{label}: {FLEET * 1e3 / host_ms:.1f} "
+              f"solves/s, {host_ms:.4f} host ms/tick, {dev_ms:.4f} device "
+              f"ms/tick (CUDA events), {n} {kernel} launches over "
+              f"{cfg['ticks'] + 2} ticks, converged share {share:.6f}, "
+              f"max_err_vs_exact {err:.3e} on lanes {list(lanes)}")
+        return err
+
+    # phases 10 and 11: config 1 and the roofline fleet, accurate ticks
+    k3_launches = 0
+    for cfg in (c1, roof):
+        reset_counts()
+        out = serve_plan(tt, cfg)
+        n = ak.fused_admm_box_shared.launches
+        k3_launches += n
+        err = report(cfg, "", "fused_admm_box_shared", n, out)
+        if n == 0:
+            fail(f"{cfg['name']}: the served path never launched "
+                 f"fused_admm_box_shared")
+        if not err <= ORACLE_TOL:
+            fail(f"{cfg['name']}: max_err_vs_exact {err:.3e} > {ORACLE_TOL}")
+
+    # phase 11, second part: the roofline fleet through the f32 fused tick
+    fast = dict(roof, name="roofline fleet, f32 fused tick",
+                plan=f32_plan(roof["plan"]),
+                ticks=min(SHORT_TICKS, ROOF_TICKS))
+    fast["step"], rho = fast_step(tt, fast["plan"], roof["opts"],
+                                  roof["x0s"], roof["x0s"].mean(0))
+    print(f"setup: {fast['name']}, rho={rho:.6g} from auto_rho of this "
+          f"step")
+    reset_counts()
+    out = serve_plan(tt, fast)
+    n = ak.fused_admm_box_shared.launches
+    k3_launches += n
+    report(fast, " (not gated)", "fused_admm_box_shared", n, out)
+    if n == 0:
+        fail("the f32 fused tick never launched fused_admm_box_shared")
+
+    # phase 12: config 2 through the shared general kernel, then plain
+    reset_counts()
+    out = serve_plan(tt, c2)
+    k6_launches = ak.fused_admm_general_shared.launches
+    err = report(c2, "", "fused_admm_general_shared", k6_launches, out)
+    if k6_launches == 0:
+        fail("config 2: the served path never launched "
+             "fused_admm_general_shared")
+    if not err <= ORACLE_TOL:
+        fail(f"config 2: max_err_vs_exact {err:.3e} > {ORACLE_TOL}")
+    plain_step = tt.make_plan_step(c2["plan"], c2["opts"], batched=True,
+                                   seed_center=c2["center"], use_fused=False)
+    reset_counts()
+    out = serve_plan(tt, c2, step=plain_step)
+    report(c2, " through use_fused=False (not gated)", "kernel",
+           ak.fused_admm_general_shared.launches, out)
+
+    # phase 13: config 4 in f32 through the f32 fused tick (per-lane K2)
+    c4 = dict(name="config 4, f32 fused tick", plan=f32_plan(plan4),
+              x0_seq=x0_dev4, ticks=SHORT_TICKS)
+    x0s4 = x0_dev4[0].cpu().numpy().astype(np.float64)
+    c4["step"], rho = fast_step(tt, c4["plan"], opts4, x0s4, x0s4)
+    opts4 = opts4.replace(rho=rho)
+    print(f"setup: {c4['name']}, rho={rho:.6g} from auto_rho of this step")
+    k2 = k2_vs_plain(ak, c4["step"], c4["plan"], opts4, x0_dev4[0])
+    print(f"kernel fused_admm_box (config 4 operators in f32, serving rho, "
+          f"refine {max(opts4.kkt_refine, 0)}): max_abs_err {k2[0]:.3e} (tol "
+          f"{k2[1]:.3e}); kernel {k2[2]:.4f} ms, plain {k2[3]:.4f} ms, bound "
+          f"{k2[4][0]:.4f} ms ({k2[4][1]})")
+    if not k2[0] <= k2[1]:
+        fail("fused_admm_box disagrees with the plain version")
+    reset_counts()
+    out = serve_plan(tt, c4)
+    k2_launches = ak.fused_admm_box.launches
+    report(c4, " (not gated)", "fused_admm_box", k2_launches, out)
+    if k2_launches == 0:
+        fail("the f32 fused tick never launched fused_admm_box")
+
+    # K3's record: the roofline fleet's serving call (refine 0)
+    r_err, r_ms, r_plain, r_bnd = k3[("roofline fleet",
+                                      "refine 0, serving rho")]
+    serving6 = k6["serving rho"]
+    return {
+        "fused_admm_box": kernel_record(
+            "fused_admm_box", KERNEL_SOURCE, REPLACES_K2, k2_launches, k2[0],
+            k2[2], k2[3], k2[4]),
+        "fused_admm_box_shared": kernel_record(
+            "fused_admm_box_shared", SHARED_SOURCE, REPLACES_K3, k3_launches,
+            max(v[0] for v in k3.values()), r_ms, r_plain, r_bnd),
+        "fused_admm_general_shared": kernel_record(
+            "fused_admm_general_shared", GENERAL_SOURCE, REPLACES_K6,
+            k6_launches, max(v[0] for v in k6.values()), serving6[2],
+            serving6[3], serving6[4]),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -636,6 +1214,7 @@ def main() -> int:
 
     def reset_counts():
         for fn in (ak.fused_admm_box_lanes, ak.fused_admm_box,
+                   ak.fused_admm_box_shared, ak.fused_admm_general_shared,
                    sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed):
             fn.launches = 0
 
@@ -673,6 +1252,13 @@ def main() -> int:
               f"iteration: kernel {k64:.3e}, plain {p64:.3e}")
         if held and not err <= KERNEL_TOL:
             fail(f"kernel mode {mode} disagrees with the plain version")
+    # the one PyTorch call that computes the Q x pass: g = x K - spr x
+    Kinv4, K4, _ = step.state
+    s4 = torch.full_like(x0_dev[0][:, :1].expand(-1, K4.shape[-1]), 0.01)
+    spr = opts.sigma + opts.rho
+    qx_lib_ms = _cuda_ms(lambda: torch.baddbmm(s4.unsqueeze(1), s4.unsqueeze(1),
+                                               K4, beta=-spr), 20)
+    print(f"library qx: torch.baddbmm {qx_lib_ms:.4f} ms")
 
     # phase 4: the config-4 main path
     reset_counts()
@@ -693,15 +1279,15 @@ def main() -> int:
           f"on lanes {list(lanes)}")
     if not err <= ORACLE_TOL:
         fail(f"max_err_vs_exact {err:.3e} > {ORACLE_TOL}")
-    kernels = [{
-        "name": "fused_admm_box_lanes", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": max(modes[m][0] for m in ("x0_zero", "qx",
-                                                  "general")),
-        # per tick the main path runs the x0 = 0 body and the Q x pass
-        "ms": modes["x0_zero"][1] + modes["qx"][1],
-        "plain_ms": modes["x0_zero"][2] + modes["qx"][2]}]
+    # per tick the main path runs the x0 = 0 body and the Q x pass
+    work = [box_work(BATCH, HORIZON, n_it, 0, body, per_lane=True)
+            for body, n_it in (("x0_zero", ITERS), ("qx", 0))]
+    kernels = {"fused_admm_box_lanes": kernel_record(
+        "fused_admm_box_lanes", KERNEL_SOURCE, REPLACES, launches,
+        max(modes[m][0] for m in ("x0_zero", "qx", "general")),
+        modes["x0_zero"][1] + modes["qx"][1],
+        modes["x0_zero"][2] + modes["qx"][2],
+        bound(sum(w[0] for w in work), sum(w[1] for w in work)))}
 
     # the stagewise serving facades (plans, gains and scales)
     configs = []
@@ -716,12 +1302,14 @@ def main() -> int:
     # phase 5: the stagewise kernel against its plain version
     probe = {}
     for cfg in configs:
-        entry, e32, b32, e64, ms, plain_ms, ms64 = stagewise_vs_plain(sk, cfg)
-        probe[entry] = (e32, ms, plain_ms)
+        (entry, e32, b32, e64, ms, plain_ms, ms64,
+         bnd) = stagewise_vs_plain(sk, cfg)
+        probe[entry] = (e32, ms, plain_ms, bnd)
         print(f"kernel {entry} ({cfg['name']} plan, {cfg['opts'].max_iter} "
               f"iterations): float64 max_abs_err {e64:.3e} (tol {F64_TOL}),"
               f" float32 max_abs_err {e32:.3e} (tol {b32:.3e}); kernel "
-              f"{ms:.4f} ms (float64 {ms64:.4f} ms), plain {plain_ms:.1f} ms")
+              f"{ms:.4f} ms (float64 {ms64:.4f} ms), plain {plain_ms:.1f} ms,"
+              f" bound {bnd[0]:.4f} ms ({bnd[1]})")
         if not (e64 <= F64_TOL and e32 <= b32):
             fail(f"{entry} disagrees with the plain version")
 
@@ -749,15 +1337,17 @@ def main() -> int:
               f"{list(cfg['lanes'])}")
         if not rel <= REL_TOL:
             fail(f"{cfg['name']}: max_err_rel {rel:.3e} > {REL_TOL}")
-        e32, ms, plain_ms = probe[entry.__name__]
-        kernels.append({
-            "name": entry.__name__, "route": "cuda",
-            "source": STAGEWISE_SOURCE,
-            "replaces": STAGEWISE_REPLACES[entry.__name__],
-            "launches": n, "max_abs_err": e32, "ms": ms,
-            "plain_ms": plain_ms})
+        e32, ms, plain_ms, bnd = probe[entry.__name__]
+        kernels[entry.__name__] = kernel_record(
+            entry.__name__, STAGEWISE_SOURCE,
+            STAGEWISE_REPLACES[entry.__name__], n, e32, ms, plain_ms, bnd)
 
-    print(json.dumps({"kernels": kernels}))
+    kernels.update(shared_plan_phases(tt, ak, dev, plan, opts, x0_dev,
+                                      reset_counts))
+    order = ("fused_admm_box_lanes", "fused_admm_box",
+             "fused_admm_box_shared", "fused_stagewise_tick",
+             "fused_stagewise_tick_streamed", "fused_admm_general_shared")
+    print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -2,15 +2,20 @@
 
 The second implementation of the linear-MPC engine in ``copra_tpu``, which
 stays the reference.  Ported so far: condensing, cost and constraint
-lowering, QP assembly, control plans and the accurate batched serving tick,
-whose ADMM iterations run in a hand-written CUDA kernel
-(``csrc/admm_box.cu``), and the stagewise Riccati-in-ADMM engine with its
-serving tick, whose iterations run in a second one
-(``csrc/stagewise_tick.cu``).  On the CPU each kernel's plain PyTorch
-version runs instead.  Names match the reference's.  Importing this package imports neither
-JAX nor ``copra_tpu``.
+lowering, QP assembly, control plans with every serving step of
+``make_plan_step`` (the accurate and f32 fused ticks on per-lane and shared
+plans, the box-only and general-row steps), and the stagewise
+Riccati-in-ADMM engine with its serving tick.  Their ADMM iterations run in
+hand-written CUDA kernels (``csrc/admm_box.cu``, ``csrc/admm_box_shared.cu``,
+``csrc/admm_general_shared.cu``, ``csrc/stagewise_tick.cu``); on the CPU
+each kernel's plain PyTorch version runs instead.  Names match the
+reference's.  What the entry points build from numpy arrays and Python
+numbers goes to the package's default device, the GPU unless
+:func:`set_default_device` says otherwise.  Importing this package imports
+neither JAX nor ``copra_tpu``.
 """
 
+from ._tensors import default_device, set_default_device
 from .autospan import span_matrix, span_vector
 from .constraints import (Constraint, ConstraintKind, ControlBoundConstraint,
                           ControlConstraint, MixedConstraint,
@@ -35,6 +40,7 @@ from .systems import (LTISystem, LTVSystem, Preview, condense, condense_lti,
 __version__ = "0.1.0"
 
 __all__ = [
+    "set_default_device", "default_device",
     "build_qp", "HESSIAN_RIDGE",
     "ControlPlan", "make_control_plan", "make_plan_step", "make_seed_map",
     "plan_qp", "plan_trajectory", "auto_rho", "suggest_rho",

@@ -1,6 +1,7 @@
 """Build the port's containers from numpy arrays (for example the leaves of
 a reference ``ControlPlan`` or system), so one problem can be fed to both
-implementations."""
+implementations.  ``device=None`` is the package's default device
+(:func:`copra_tpu_torch.set_default_device`)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Mapping, Union
 import numpy as np
 import torch
 
+from ._tensors import resolve_device
 from .plan import ControlPlan
 from .qp.riccati import StagewiseQP
 from .systems import LTISystem, LTVSystem
@@ -18,11 +20,11 @@ _STATIC = ("xdim", "udim", "horizon")
 
 
 def _tensor(v, device) -> torch.Tensor:
-    return torch.tensor(np.array(v), device=device)
+    return torch.tensor(np.array(v), device=resolve_device(device))
 
 
 def plan_from_numpy(fields: Mapping[str, np.ndarray],
-                    device="cpu") -> ControlPlan:
+                    device=None) -> ControlPlan:
     """``ControlPlan`` from a mapping of field name to array (the static
     ``xdim``/``udim``/``horizon`` as integers), dtypes kept."""
     kw = {}
@@ -32,7 +34,7 @@ def plan_from_numpy(fields: Mapping[str, np.ndarray],
     return ControlPlan(**kw)
 
 
-def system_from_numpy(fields: Mapping[str, np.ndarray], device="cpu"
+def system_from_numpy(fields: Mapping[str, np.ndarray], device=None
                       ) -> Union[LTISystem, LTVSystem]:
     """``LTISystem`` when ``fields`` has a ``horizon``, else ``LTVSystem``;
     fields ``A``, ``B``, ``d``, ``x0`` (batch dimensions allowed)."""
@@ -43,7 +45,7 @@ def system_from_numpy(fields: Mapping[str, np.ndarray], device="cpu"
 
 
 def stagewise_from_numpy(fields: Mapping[str, np.ndarray],
-                         device="cpu") -> StagewiseQP:
+                         device=None) -> StagewiseQP:
     """``StagewiseQP`` from a mapping of field name to array (the leaves of
     a reference ``StagewiseQP``, single or batched), dtypes kept; the row
     fields may be missing or ``None`` for a box-only problem."""

@@ -204,7 +204,7 @@ int copra_admm_box_max_smem(int device) {
   return bytes;
 }
 
-const char* copra_cuda_error_string(int code) {
+const char* copra_admm_box_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

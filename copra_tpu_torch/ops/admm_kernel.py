@@ -1,29 +1,43 @@
-"""Fixed-count box-only ADMM over a batch of lanes: the plain PyTorch
-version and the wrappers of the hand-written CUDA kernel.
+"""Fixed-count ADMM over a batch of lanes: the plain PyTorch versions and
+the wrappers of the hand-written CUDA kernels.
 
-Port of ``copra_tpu/ops/admm_kernel.py``: :func:`admm_box_plain` is the
-counterpart of ``xla_admm_box``; :func:`fused_admm_box_lanes` and
-:func:`fused_admm_box` are the counterparts of the Pallas entry points of
-the same names, both served by one kernel,
-``copra_tpu_torch/csrc/admm_box.cu``.  That kernel replaces the TPU's
-``fused_admm_box_lanes`` (``_lanes_box_kernel_z0``, ``_lanes_qx_kernel``,
-``_lanes_box_kernel``) and ``fused_admm_box``.
+Port of ``copra_tpu/ops/admm_kernel.py``.  Three kernels serve four entry
+points:
 
-What bounds it on an H100 is the bytes of the per-lane operators: at the
-main path's B = 4096, n = 100, ``Kinv`` is 164 MB, more than three times
-the L2, and the plain version streams it from device memory once per
-iteration.  The kernel gives each lane one thread block, stages the lane's
-operator in shared memory once and runs every iteration there, so device
-memory sees each operator once per call.
+* ``copra_tpu_torch/csrc/admm_box.cu``: :func:`fused_admm_box_lanes` and
+  :func:`fused_admm_box`, box ADMM with a distinct ``Kinv``/``K [B, n, n]``
+  per lane (the TPU's ``fused_admm_box_lanes`` bodies
+  ``_lanes_box_kernel_z0``, ``_lanes_qx_kernel``, ``_lanes_box_kernel``,
+  and ``fused_admm_box``).  What bounds it on an H100 is the bytes of the
+  per-lane operators (164 MB for ``Kinv`` at B = 4096, n = 100, three
+  times the L2): one thread block per lane stages its operator in shared
+  memory once per call.
+* ``copra_tpu_torch/csrc/admm_box_shared.cu``: :func:`fused_admm_box_shared`,
+  box ADMM where every lane shares one ``Kinv``/``K [n, n]`` (the TPU's
+  ``fused_admm_box_shared``).  Each iteration is a ``[B, n] x [n, n]``
+  product, so it is bound by f32 arithmetic; a block keeps a tile of 32
+  lanes in registers and streams the operators through shared memory.
+* ``copra_tpu_torch/csrc/admm_general_shared.cu``:
+  :func:`fused_admm_general_shared`, general ADMM with a shared dense
+  ``C [m, n]`` and one penalty per row (the TPU's
+  ``fused_admm_general_shared``), a dependent chain of small products per
+  lane: one warp per lane.
+
+:func:`admm_box_plain` (the counterpart of ``xla_admm_box``, rank-3 or
+rank-2 operators) and :func:`admm_general_shared_plain` are the plain
+versions.
 
 The TPU-only layout machinery is not ported: ``pack_lanes_operator``,
 ``_pack_lanes_vec``/``_unpack_lanes_vec`` and ``_pad8`` (the lane-major
 ``[nc, n8, n8, 128]`` packing and its identity pad existed for Mosaic's
-vector layout), ``lanes_kernel_fits``/``default_sub_batch`` (VMEM budgets)
-and the ``COPRA_*`` environment switches.  Operators stay ``[B, n, n]``.
+vector layout), ``lanes_kernel_fits``/``default_sub_batch`` and
+``default_lane_block`` (VMEM budgets), the shared kernels' two interleaved
+half-streams (an MXU/VPU overlap), the padding of B with copies of lane 0
+(the kernels mask their ragged edge) and the ``COPRA_*`` environment
+switches.
 
 A wrapper takes the plain version only for tensors on the CPU.  On a CUDA
-tensor it launches the kernel or raises; nothing falls back.
+tensor it launches its kernel or raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -41,8 +55,6 @@ Tensor = torch.Tensor
 MODE_X0_ZERO = 1
 MODE_QX = 2
 MODE_GENERAL = 3
-
-_lib = None
 
 
 def kernel_mode(n_iter: int, refine: int, assume_x0_zero: bool) -> int:
@@ -69,8 +81,10 @@ def admm_box_plain(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor, u: Tensor,
                    sigma: float, alpha: float, rho: float, refine: int = 0,
                    assume_x0_zero: bool = False
                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Plain PyTorch version of the kernel (counterpart of
-    ``xla_admm_box``), in all three of its modes.
+    """Plain PyTorch version of the box kernels (counterpart of
+    ``xla_admm_box``): per-lane operators in all three modes of
+    ``admm_box.cu``, shared operators in the general mode that
+    ``admm_box_shared.cu`` computes.
 
     ``Kinv``/``K`` are ``[B, n, n]`` (per lane) or ``[n, n]`` (shared);
     vectors are ``[B, n]``.  Returns ``(x, y, z, g)`` with ``g = Q x =
@@ -108,60 +122,138 @@ def admm_box_plain(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor, u: Tensor,
     return x, y, z, g
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = load_library("admm_box")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.copra_admm_box.restype = i
-    lib.copra_admm_box.argtypes = [p] * 12 + [i] * 5 + [f] * 6 + [p]
-    lib.copra_admm_box_smem_bytes.restype = ctypes.c_size_t
-    lib.copra_admm_box_smem_bytes.argtypes = [i, i]
-    lib.copra_admm_box_max_smem.restype = i
-    lib.copra_admm_box_max_smem.argtypes = [i]
-    lib.copra_cuda_error_string.restype = ctypes.c_char_p
-    lib.copra_cuda_error_string.argtypes = [i]
-    _lib = lib
+def admm_general_shared_plain(Kinv: Tensor, K: Tensor, C: Tensor,
+                              rho_vec: Tensor, l: Tensor, u: Tensor,
+                              e0: Tensor, y0: Tensor, z0: Tensor, *,
+                              n_iter: int, sigma: float, alpha: float,
+                              refine: int = 0
+                              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of the shared general kernel: the update order
+    of the reference body (``_general_kernel_shared``'s ``one``) on batched
+    tensors.  ``Kinv``/``K [n, n]``, ``C [m, n]``, ``rho_vec [m]``;
+    ``l``/``u``/``y0``/``z0 [B, m]``, ``e0 [B, n]``.  Returns ``(e, y,
+    z)``.
+
+    Each product is summed in float64 and rounded once to the inputs'
+    dtype, as the kernel's compensated f32 sums give it: with plain f32
+    sums the iteration's rounding leaves config 2's worst lanes ~5e-5 from
+    the exact solution (``csrc/admm_general_shared.cu``)."""
+    oma = 1.0 - alpha
+    rho_inv = 1.0 / rho_vec
+
+    def mm(a: Tensor, b: Tensor) -> Tensor:
+        return (a.double() @ b.double()).to(a.dtype)
+
+    e, z, y = e0, z0, y0
+    for _ in range(n_iter):
+        rhs = sigma * e + mm(rho_vec * z - y, C)
+        e_t = mm(rhs, Kinv)
+        for _ in range(refine):
+            e_t = e_t + mm(rhs - mm(e_t, K), Kinv)
+        z_t = mm(e_t, C.mT)
+        e = alpha * e_t + oma * e
+        z_rel = alpha * z_t + oma * z
+        z_n = torch.clamp(z_rel + rho_inv * y, l, u)
+        y = y + rho_vec * (z_rel - z_n)
+        z = z_n
+    return e, y, z
+
+
+# ctypes signatures of each kernel library: {symbol: (restype, argtypes)}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "admm_box": {
+        "copra_admm_box": (_I, [_P] * 12 + [_I] * 5 + [_F] * 6 + [_P]),
+        "copra_admm_box_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+        "copra_admm_box_max_smem": (_I, [_I]),
+        "copra_admm_box_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "admm_box_shared": {
+        "copra_admm_box_shared": (_I, [_P] * 12 + [_I] * 4 + [_F] * 6
+                                  + [_P]),
+        "copra_admm_box_shared_smem_bytes": (ctypes.c_size_t, [_I]),
+        "copra_admm_box_shared_max_n": (_I, []),
+        "copra_admm_box_shared_max_smem": (_I, [_I]),
+        "copra_admm_box_shared_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "admm_general_shared": {
+        "copra_admm_general_shared": (_I, [_P] * 12 + [_I] * 5 + [_F] * 3
+                                      + [_P]),
+        "copra_admm_general_shared_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+        "copra_admm_general_shared_max_n": (_I, []),
+        "copra_admm_general_shared_max_m": (_I, []),
+        "copra_admm_general_shared_max_smem": (_I, [_I]),
+        "copra_admm_general_shared_error_string": (ctypes.c_char_p, [_I]),
+    },
+}
+_loaded = {}
+
+
+def _load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with its signatures set."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = load_library(name)
+        for sym, (res, args) in _SIGNATURES[name].items():
+            fn = getattr(lib, sym)
+            fn.restype, fn.argtypes = res, args
+        _loaded[name] = lib
     return lib
 
 
-def _check(Kinv: Tensor, K: Tensor, vecs) -> None:
-    if Kinv.dim() == 2 or K.dim() == 2:
-        raise NotImplementedError("K3 fused_admm_box_shared not yet ported")
-    if Kinv.dim() != 3 or K.dim() != 3:
-        raise ValueError(f"operators must be [B, n, n], got {tuple(Kinv.shape)}"
-                         f" and {tuple(K.shape)}")
-    B, n = vecs[0].shape if vecs[0].dim() == 2 else (-1, -1)
-    if B < 1 or n < 1:
-        raise ValueError(f"vectors must be [B, n] with B, n >= 1, got "
-                         f"{tuple(vecs[0].shape)}")
-    dev = Kinv.device
-    for name, t, shape in (("Kinv", Kinv, (B, n, n)), ("K", K, (B, n, n)),
-                           *((nm, v, (B, n)) for nm, v in
-                             zip(("c", "l", "u", "x0", "y0", "z0"), vecs))):
+def _check(named, dev) -> None:
+    """Each ``(name, tensor, shape)`` lies on ``dev``, is float32,
+    contiguous and of ``shape``."""
+    for name, t, shape in named:
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, Kinv on {dev}")
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma, alpha, rho,
-            refine, assume_x0_zero):
-    vecs = (c, l, u, x0, y0, z0)
-    _check(Kinv, K, vecs)
+def _vec_shape(v: Tensor) -> Tuple[int, int]:
+    if v.dim() != 2 or v.shape[0] < 1 or v.shape[1] < 1:
+        raise ValueError(f"vectors must be [B, n] with B, n >= 1, got "
+                         f"{tuple(v.shape)}")
+    return tuple(v.shape)
+
+
+def _counts(n_iter: int, refine: int) -> None:
     if n_iter < 0 or refine < 0:
         raise ValueError(f"n_iter and refine must be >= 0, got {n_iter}, "
                          f"{refine}")
-    B, n = c.shape
+
+
+def _raise_on(rc: int, lib, sym: str) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{sym}_error_string")(rc).decode()
+        raise RuntimeError(f"{sym} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
+_BOX_VECS = ("c", "l", "u", "x0", "y0", "z0")
+
+
+def _launch(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma, alpha, rho,
+            refine, assume_x0_zero):
+    vecs = (c, l, u, x0, y0, z0)
+    if Kinv.dim() != 3 or K.dim() != 3:
+        raise ValueError(
+            f"operators must be per lane, [B, n, n], got {tuple(Kinv.shape)}"
+            f" and {tuple(K.shape)}; shared [n, n] operators go to "
+            f"fused_admm_box_shared")
+    B, n = _vec_shape(c)
+    dev = Kinv.device
+    _check((("Kinv", Kinv, (B, n, n)), ("K", K, (B, n, n)),
+            *((nm, v, (B, n)) for nm, v in zip(_BOX_VECS, vecs))), dev)
+    _counts(n_iter, refine)
     mode = kernel_mode(n_iter, refine, assume_x0_zero)
-    lib = _load()
-    dev = c.device
+    lib = _load("admm_box")
     need = lib.copra_admm_box_smem_bytes(n, mode)
     limit = lib.copra_admm_box_max_smem(dev.index)
     if need > limit or n > 1024:
@@ -177,9 +269,7 @@ def _launch(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma, alpha, rho,
             B, n, int(n_iter), int(refine), mode,
             float(sigma), float(alpha), float(1.0 - alpha), float(rho),
             float(1.0 / rho), float(sigma + rho), stream)
-    if rc != 0:
-        raise RuntimeError(f"admm_box kernel launch failed: CUDA error {rc} "
-                           f"({lib.copra_cuda_error_string(rc).decode()})")
+    _raise_on(rc, lib, "copra_admm_box")
     return tuple(outs)
 
 
@@ -221,5 +311,108 @@ def fused_admm_box(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor, u: Tensor,
     return out
 
 
+def _launch_box_shared(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma,
+                       alpha, rho, refine):
+    vecs = (c, l, u, x0, y0, z0)
+    B, n = _vec_shape(c)
+    dev = Kinv.device
+    _check((("Kinv", Kinv, (n, n)), ("K", K, (n, n)),
+            *((nm, v, (B, n)) for nm, v in zip(_BOX_VECS, vecs))), dev)
+    _counts(n_iter, refine)
+    lib = _load("admm_box_shared")
+    need = lib.copra_admm_box_shared_smem_bytes(n)
+    limit = lib.copra_admm_box_shared_max_smem(dev.index)
+    widest = lib.copra_admm_box_shared_max_n()
+    if n > widest or need > limit:
+        raise ValueError(
+            f"admm_box_shared kernel: n = {n} needs {need} bytes of shared "
+            f"memory per block; it takes n <= {widest} and this device "
+            f"allows {limit} bytes")
+    outs = [torch.empty_like(c) for _ in range(4)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.copra_admm_box_shared(
+            *(t.data_ptr() for t in (Kinv, K, *vecs, *outs)),
+            B, n, int(n_iter), int(refine),
+            float(sigma), float(alpha), float(1.0 - alpha), float(rho),
+            float(1.0 / rho), float(sigma + rho), stream)
+    _raise_on(rc, lib, "copra_admm_box_shared")
+    return tuple(outs)
+
+
+def fused_admm_box_shared(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor,
+                          u: Tensor, x0: Tensor, y0: Tensor, z0: Tensor, *,
+                          n_iter: int, sigma: float, alpha: float,
+                          rho: float, refine: int = 0
+                          ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Box ADMM for SHARED operators: ``Kinv``/``K [n, n]`` serve every
+    lane; vectors ``[B, n]`` f32.  Returns ``(x, y, z, g)`` with ``g = x K
+    - (sigma + rho) x``, always from ``K``.  CPU tensors run
+    :func:`admm_box_plain` (general mode); CUDA tensors launch
+    ``csrc/admm_box_shared.cu``.  The TPU's ``lane_block`` and
+    ``interpret`` have no meaning here."""
+    kw = dict(n_iter=n_iter, sigma=sigma, alpha=alpha, rho=rho,
+              refine=refine)
+    if Kinv.device.type == "cpu":
+        return admm_box_plain(Kinv, K, c, l, u, x0, y0, z0, **kw)
+    out = _launch_box_shared(Kinv, K, c, l, u, x0, y0, z0, **kw)
+    fused_admm_box_shared.launches += 1
+    return out
+
+
+def _launch_general_shared(Kinv, K, C, rho_vec, l, u, e0, y0, z0, *,
+                           n_iter, sigma, alpha, refine):
+    B, m = _vec_shape(l)
+    n = Kinv.shape[-1] if Kinv.dim() == 2 else -1
+    dev = Kinv.device
+    _check((("Kinv", Kinv, (n, n)), ("K", K, (n, n)), ("C", C, (m, n)),
+            ("rho_vec", rho_vec, (m,)), ("l", l, (B, m)), ("u", u, (B, m)),
+            ("e0", e0, (B, n)), ("y0", y0, (B, m)), ("z0", z0, (B, m))),
+           dev)
+    _counts(n_iter, refine)
+    lib = _load("admm_general_shared")
+    need = lib.copra_admm_general_shared_smem_bytes(n, m)
+    limit = lib.copra_admm_general_shared_max_smem(dev.index)
+    max_n = lib.copra_admm_general_shared_max_n()
+    max_m = lib.copra_admm_general_shared_max_m()
+    if n > max_n or m > max_m or need > limit:
+        raise ValueError(
+            f"admm_general_shared kernel: (n, m) = ({n}, {m}) needs {need} "
+            f"bytes of shared memory per block; it takes n <= {max_n}, "
+            f"m <= {max_m} and this device allows {limit} bytes")
+    outs = (torch.empty_like(e0), torch.empty_like(y0), torch.empty_like(z0))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.copra_admm_general_shared(
+            *(t.data_ptr() for t in (Kinv, K, C, rho_vec, l, u, e0, y0, z0,
+                                     *outs)),
+            B, n, m, int(n_iter), int(refine),
+            float(sigma), float(alpha), float(1.0 - alpha), stream)
+    _raise_on(rc, lib, "copra_admm_general_shared")
+    return outs
+
+
+def fused_admm_general_shared(Kinv: Tensor, K: Tensor, C: Tensor,
+                              rho_vec: Tensor, l: Tensor, u: Tensor,
+                              e0: Tensor, y0: Tensor, z0: Tensor, *,
+                              n_iter: int, sigma: float, alpha: float,
+                              refine: int = 0
+                              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """General ADMM for SHARED operators: ``Kinv``/``K [n, n]``, ``C [m,
+    n]`` and ``rho_vec [m]`` serve every lane; ``l``/``u``/``y0``/``z0 [B,
+    m]``, ``e0 [B, n]``, all f32.  Returns ``(e, y, z)``.  CPU tensors run
+    :func:`admm_general_shared_plain`; CUDA tensors launch
+    ``csrc/admm_general_shared.cu``."""
+    kw = dict(n_iter=n_iter, sigma=sigma, alpha=alpha, refine=refine)
+    if Kinv.device.type == "cpu":
+        return admm_general_shared_plain(Kinv, K, C, rho_vec, l, u, e0, y0,
+                                         z0, **kw)
+    out = _launch_general_shared(Kinv, K, C, rho_vec, l, u, e0, y0, z0, **kw)
+    fused_admm_general_shared.launches += 1
+    return out
+
+
 fused_admm_box_lanes.launches = 0
 fused_admm_box.launches = 0
+fused_admm_box_shared.launches = 0
+fused_admm_general_shared.launches = 0

@@ -8,10 +8,12 @@ iterations.
 
 Ported here: :class:`ControlPlan`, :func:`make_control_plan`,
 :func:`plan_qp`, :func:`plan_trajectory`, the host-f64 :class:`SeedMap`,
-:func:`auto_rho`, :func:`suggest_rho` and the accurate serving tick of
-:func:`make_plan_step`.  The f32 fast step, the unbatched step, the
-general-row step and ``make_plan_multistep`` are not ported yet (ROADMAP
-queue 1, items 4 and 5).
+:func:`auto_rho`, :func:`suggest_rho` and every step of
+:func:`make_plan_step`: the accurate tick (per-lane and shared operators),
+the f32 fused tick, the box-only and general-row steps (batched and
+unbatched) and the general tick through the shared general kernel.  Not
+ported yet: the general path's ``polish`` (it needs ``qp/admm``'s
+``_polish``, ROADMAP queue 1, item 4) and ``make_plan_multistep`` (item 5).
 
 Where the reference vmaps over a fleet, the port takes a batch dimension:
 ``make_control_plan`` of an :class:`LTVSystem` whose ``A`` is
@@ -32,17 +34,19 @@ Dropped with the TPU (each was a workaround for it):
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ._precision import highest_precision
-from ._tensors import as_tensor, common
+from ._tensors import as_tensor, common, matvec, matvec_t
 from .constraints import Constraint
 from .costs import CostFunction
 from .mpc import build_qp
-from .ops.admm_kernel import fused_admm_box_lanes
+from .ops.admm_kernel import (admm_box_plain, fused_admm_box,
+                               fused_admm_box_lanes, fused_admm_box_shared,
+                               fused_admm_general_shared)
 from .qp.native import solve_qp_native
 from .qp.types import DenseQP, QPSolution, SolverOptions, WarmStart
 from .systems import System, condense
@@ -252,6 +256,7 @@ def auto_rho(plan: ControlPlan,
              seed_center=None,
              accurate: bool = False,
              accurate_rounds: int = 1,
+             use_fused=None,
              probe_lanes: int = 8,
              probe_steps: int = 3,
              candidates=(0.01, 0.1, 0.33, 1.0, 3.3),
@@ -264,7 +269,9 @@ def auto_rho(plan: ControlPlan,
     runs the cold+warm tick pattern, gates each against the exact f64
     native oracle of the same QPs and returns the winner (with
     ``return_probe``, also the ``{multiple: error}`` map).  Same policy,
-    draws and candidates as the reference.
+    draws and candidates as the reference.  ``seed_center``, ``accurate``,
+    ``accurate_rounds`` and ``use_fused`` mirror the :func:`make_plan_step`
+    call the caller will build, so the probe runs the same step.
     """
     x0s = np.asarray(x0s, np.float64)
     B = x0s.shape[0]
@@ -300,7 +307,8 @@ def auto_rho(plan: ControlPlan,
         step = make_plan_step(plan_p, options.replace(rho=rho),
                               batched=True, seed_center=center,
                               accurate=accurate,
-                              accurate_rounds=accurate_rounds)
+                              accurate_rounds=accurate_rounds,
+                              use_fused=use_fused)
         warm = None
         u = None
         for t in range(probe_steps + 1):
@@ -322,17 +330,51 @@ def suggest_rho(plan: ControlPlan, sample_lanes: int = 4) -> float:
     return 0.1 * gm
 
 
+def _auto_refine(kkt_refine: int, dt: torch.dtype) -> int:
+    """``kkt_refine``, or when negative (auto) one refinement step in f32
+    and none in f64."""
+    if kkt_refine >= 0:
+        return kkt_refine
+    return 1 if torch.finfo(dt).eps > 1e-10 else 0
+
+
+def _tolerances(opts: SolverOptions, dt: torch.dtype):
+    """OSQP-convention ``(eps_abs, eps_rel)`` with the dtype floor."""
+    floor = 25.0 * float(torch.finfo(dt).eps)
+    return max(opts.eps_abs, floor), max(opts.eps_rel, floor)
+
+
+def _amax(t: Tensor) -> Tensor:
+    return t.abs().amax(-1)
+
+
+def _status(conv: Tensor) -> Tensor:
+    return torch.where(conv, 0, 1).to(torch.int32)
+
+
+def _iterations(shape, count: int, device) -> Tensor:
+    return torch.full(tuple(shape), count, dtype=torch.int32, device=device)
+
+
+def _qv(Q: Tensor, v: Tensor) -> Tensor:
+    """``Q v`` per lane for batched ``Q [B, n, n]``; ``v @ Q`` (Q
+    symmetric) for a shared ``Q [n, n]``, as the reference forms each."""
+    return matvec(Q, v) if Q.dim() == 3 else v @ Q
+
+
 def _make_accurate_step(plan: ControlPlan, options: SolverOptions,
-                        seed_center, rounds: int = 2):
+                        seed_center, rounds: int = 2,
+                        use_fused: bool = True):
     """f64-exact batched box-only serving tick (see :func:`make_plan_step`).
 
-    Per tick: the f64 seed map, ``rounds`` f32 correction-space ADMM runs
-    through :func:`fused_admm_box_lanes` (the CUDA kernel on a GPU), an f64
-    combine with exact bound snapping, and a status from the KKT residual
-    of the delivered solution, whose ``Q s`` term comes from the kernel's
-    ``n_iter = 0`` pass.  One route serves every operator shape: per-lane
-    ``[B, n, n]`` operators of any n the kernel's shared memory holds, and
-    shared ``[n, n]`` operators on the CPU.
+    Per tick: the f64 seed map, ``rounds`` f32 correction-space ADMM runs,
+    an f64 combine with exact bound snapping, and a status from the KKT
+    residual of the delivered solution.  Per-lane ``[B, n, n]`` operators
+    run :func:`fused_admm_box_lanes` (the x0 = 0 body, and its ``n_iter =
+    0`` pass for the status's ``Q s``); shared ``[n, n]`` operators run
+    :func:`fused_admm_box_shared` from x0 = 0, and ``Q s`` is one product.
+    ``use_fused=False`` runs the plain version :func:`admm_box_plain`
+    instead, as the reference's ``False`` runs its XLA twin.
     """
     f32, f64 = torch.float32, torch.float64
     opts = options.replace(early_exit=False)
@@ -342,7 +384,20 @@ def _make_accurate_step(plan: ControlPlan, options: SolverOptions,
     seed_map = make_seed_map(plan, center=seed_center, keep_f64=True)
     refine = max(opts.kkt_refine, 0)
     assume_x0_zero = opts.kkt_refine <= 0
-    admm = dict(sigma=opts.sigma, alpha=opts.alpha, rho=opts.rho)
+    admm = dict(n_iter=opts.max_iter, sigma=opts.sigma, alpha=opts.alpha,
+                rho=opts.rho)
+
+    def correction(Kinv, Kf, r32, lb_e, ub_e, czero, wy, wz):
+        if not use_fused:
+            return admm_box_plain(Kinv, Kf, r32, lb_e, ub_e, czero, wy, wz,
+                                  refine=refine, **admm)
+        if Kinv.dim() == 3:
+            return fused_admm_box_lanes(Kinv, Kf, r32, lb_e, ub_e, czero, wy,
+                                        wz, refine=refine,
+                                        assume_x0_zero=assume_x0_zero,
+                                        **admm)
+        return fused_admm_box_shared(Kinv, Kf, r32, lb_e, ub_e, czero, wy,
+                                     wz, refine=refine, **admm)
 
     @highest_precision
     def acc_step(plan_b, Kinv, Kf, seed, x0_b, warm_b):
@@ -365,22 +420,15 @@ def _make_accurate_step(plan: ControlPlan, options: SolverOptions,
             lb_e = (lb64 - base64).to(f32)
             ub_e = (ub64 - base64).to(f32)
             wz = torch.clamp(czero, lb_e, ub_e)
-            e, y, ze, gq = fused_admm_box_lanes(
-                Kinv, Kf, r32, lb_e, ub_e, czero, wy, wz,
-                n_iter=opts.max_iter, refine=refine,
-                assume_x0_zero=assume_x0_zero, **admm)
+            e, y, ze, gq = correction(Kinv, Kf, r32, lb_e, ub_e, czero, wy,
+                                      wz)
             wy = y
             base64 = base64 + e.to(f64)
             if rnd < rounds - 1:
                 # gradient at the composite iterate: Q (x - xs), exactly,
-                # because Q xs + c = 0 by seed construction
-                dx64 = base64 - xs64
-                Q64 = plan_b.Q.to(f64)
-                if Q64.dim() == 3:
-                    r64 = (Q64 @ dx64.unsqueeze(-1)).squeeze(-1)
-                else:
-                    r64 = dx64 @ Q64          # Q symmetric
-                r32 = r64.to(f32)
+                # because Q xs + c = 0 by seed construction (one f64
+                # product)
+                r32 = _qv(plan_b.Q.to(f64), base64 - xs64).to(f32)
         # f64 combine; snap active coordinates to their exact bounds
         thr = 1e-6 * torch.clamp(y.abs().amax(-1, keepdim=True), min=1.0)
         at_up = y > thr
@@ -390,11 +438,16 @@ def _make_accurate_step(plan: ControlPlan, options: SolverOptions,
         x32 = x64.to(f32)
         # status from the KKT residual of the DELIVERED x64: grad = Q(x64 -
         # xs) = r + gq + Q s, with gq = Q e from the kernel and s the snap
-        # delta; Q s from the kernel's n_iter = 0 pass
+        # delta
         s32 = (x64 - base64).to(f32)
-        gqs = fused_admm_box_lanes(
-            Kinv, Kf, czero, lb_e, ub_e, s32, czero, czero, n_iter=0,
-            refine=0, **admm)[3]
+        if use_fused and Kinv.dim() == 3:
+            # the per-lane operators' n_iter = 0 pass
+            gqs = fused_admm_box_lanes(
+                Kinv, Kf, czero, lb_e, ub_e, s32, czero, czero, n_iter=0,
+                refine=0, sigma=opts.sigma, alpha=opts.alpha,
+                rho=opts.rho)[3]
+        else:
+            gqs = _qv(plan_b.Q, s32.to(plan_b.Q.dtype))
         grad = r32 + gq + gqs
         on_up = x64 >= ub64
         on_lo = x64 <= lb64
@@ -406,19 +459,14 @@ def _make_accurate_step(plan: ControlPlan, options: SolverOptions,
                         torch.where(on_lo, torch.clamp(-grad, min=0.0),
                                     grad.abs())))
         r_dual = kkt.amax(-1)
-        r_prim = (e - ze).abs().amax(-1)   # diagnostic only
-        eps_floor = 25.0 * float(torch.finfo(f32).eps)
-        eps = max(opts.eps_abs, eps_floor)
-        eps_rel = max(opts.eps_rel, eps_floor)
-        d_scale = torch.maximum(grad.abs().amax(-1), y.abs().amax(-1))
+        r_prim = _amax(e - ze)   # diagnostic only
+        eps, eps_rel = _tolerances(opts, f32)
+        d_scale = torch.maximum(_amax(grad), _amax(y))
         conv = r_dual <= eps + eps_rel * d_scale
         sol = QPSolution(
-            x=x64, y=y, z=x32,
-            status=torch.where(conv, 0, 1).to(torch.int32),
-            iterations=torch.full((bsz,), rounds * opts.max_iter,
-                                  dtype=torch.int32, device=dev),
-            primal_residual=r_prim,
-            dual_residual=r_dual)
+            x=x64, y=y, z=x32, status=_status(conv),
+            iterations=_iterations((bsz,), rounds * opts.max_iter, dev),
+            primal_residual=r_prim, dual_residual=r_dual)
         return x64, sol, WarmStart(x=x32, y=y, z=x32)
 
     def step(plan_b, x0_b, warm_b):
@@ -428,36 +476,288 @@ def _make_accurate_step(plan: ControlPlan, options: SolverOptions,
     return step
 
 
+def _make_fused_step(plan: ControlPlan, options: SolverOptions, seed_center):
+    """The f32 fused tick (batched box-only f32 plans): the correction-space
+    substitution ``x = x_seed + e`` around the exact unconstrained seed, so
+    the correction QP has ``c = 0`` and its fixed point ``e = 0`` is exact
+    in f32.  Shared operators run :func:`fused_admm_box_shared`, per-lane
+    ones :func:`fused_admm_box`; the status is the kernel's ``g = Q e``
+    plus the duals."""
+    f32 = torch.float32
+    opts = options.replace(early_exit=False)
+    Kinv_pre, K_pre = (t.contiguous() for t in _box_fast_state(plan, opts))
+    seed_map = make_seed_map(plan, center=seed_center)
+    refine = _auto_refine(opts.kkt_refine, f32)
+    kernel = fused_admm_box_shared if Kinv_pre.dim() == 2 else fused_admm_box
+    eps, eps_rel = _tolerances(opts, f32)
+
+    @highest_precision
+    def fused_step(plan_b, x0_b, warm_b):
+        n = plan_b.Q.shape[-1]
+        dev = plan_b.Q.device
+        x0_b = as_tensor(x0_b, dev).to(plan_b.Q.dtype)
+        bsz = x0_b.shape[0]
+        x_seed = seed_map.seed(x0_b)
+        lb = plan_b.lb.expand(bsz, n) - x_seed
+        ub = plan_b.ub.expand(bsz, n) - x_seed
+        czero = torch.zeros((bsz, n), dtype=f32, device=dev)
+        # every tick re-seeds the primal at the exact unconstrained
+        # minimum; only the duals persist across ticks
+        wz = torch.clamp(czero, lb, ub)
+        wy = czero if warm_b is None else warm_b.y.contiguous()
+        e, y, ze, gq = kernel(Kinv_pre, K_pre, czero, lb, ub, czero, wy, wz,
+                              n_iter=opts.max_iter, sigma=opts.sigma,
+                              alpha=opts.alpha, rho=opts.rho, refine=refine)
+        x = x_seed + e
+        z = x_seed + ze
+        r_prim = _amax(e - ze)
+        # grad = Q x + c + y = gq + y in correction space
+        r_dual = _amax(gq + y)
+        d_scale = torch.maximum(_amax(gq), _amax(y))
+        conv = ((r_prim <= eps + eps_rel * _amax(x))
+                & (r_dual <= eps + eps_rel * d_scale))
+        sol = QPSolution(
+            x=x, y=y, z=z, status=_status(conv),
+            iterations=_iterations((bsz,), opts.max_iter, dev),
+            primal_residual=r_prim, dual_residual=r_dual)
+        return x, sol, WarmStart(x=x, y=y, z=z)
+
+    fused_step.state = (Kinv_pre, K_pre, seed_map)
+    return fused_step
+
+
+def _make_box_step(plan: ControlPlan, options: SolverOptions, seed_center,
+                   batched: bool):
+    """The plain box-only step (the reference's ``single``): ``max_iter``
+    iterations of the pre-factorized KKT solve from the unconstrained seed,
+    in the plan's dtype.  Batched: the lanes form a leading dimension
+    (plan fields with or without it); unbatched: one state."""
+    opts = options.replace(early_exit=False)
+    Kinv, K = _box_fast_state(plan, opts)
+    seed_map = make_seed_map(plan, center=seed_center)
+    dt = plan.Q.dtype
+    refine = _auto_refine(opts.kkt_refine, dt)
+    eps, eps_rel = _tolerances(opts, dt)
+    sigma, rho, alpha = opts.sigma, opts.rho, opts.alpha
+
+    @highest_precision
+    def single(plan_s, x0, warm):
+        x0 = as_tensor(x0, plan_s.Q.device).to(dt)
+        c = plan_s.c0 + _rowvec(x0, plan_s.Cmap)
+        # primal re-seeded at the unconstrained minimum; only the duals
+        # persist across ticks
+        x = seed_map.seed(x0)
+        z = torch.clamp(x, plan_s.lb, plan_s.ub)
+        y = torch.zeros_like(x) if warm is None else warm.y
+        for _ in range(opts.max_iter):
+            rhs = sigma * x - c + rho * z - y
+            x_t = matvec(Kinv, rhs)
+            for _ in range(refine):
+                x_t = x_t + matvec(Kinv, rhs - matvec(K, x_t))
+            x_n = alpha * x_t + (1 - alpha) * x
+            z_rel = alpha * x_t + (1 - alpha) * z
+            z = torch.clamp(z_rel + y / rho, plan_s.lb, plan_s.ub)
+            y = y + rho * (z_rel - z)
+            x = x_n
+        r_prim = _amax(x - z)
+        Qx = matvec(plan_s.Q, x)
+        r_dual = _amax(Qx + c + y)
+        d_scale = torch.maximum(_amax(Qx),
+                                torch.maximum(_amax(y), _amax(c)))
+        conv = ((r_prim <= eps + eps_rel * _amax(x))
+                & (r_dual <= eps + eps_rel * d_scale))
+        sol = QPSolution(
+            x=x, y=y, z=z, status=_status(conv),
+            iterations=_iterations(conv.shape, opts.max_iter, x.device),
+            primal_residual=r_prim, dual_residual=r_dual)
+        return x, sol, WarmStart(x=x, y=y, z=z)
+
+    if batched:
+        return single
+    return lambda x0, warm: single(plan, x0, warm)
+
+
+@highest_precision
+def _general_fast_state(plan: ControlPlan, opts: SolverOptions):
+    """``C = [Aeq; Aineq; I]`` with its row normalisation ``E``, the row
+    penalties ``rho_vec`` (``rho_eq_scale`` on the equality rows), ``K =
+    Q + sigma I + C' diag(rho) C`` and its inverse; batched plan fields
+    give batched results."""
+    Q = plan.Q
+    dt, dev, n = Q.dtype, Q.device, Q.shape[-1]
+    me, mi = plan.Aeq.shape[-2], plan.Aineq.shape[-2]
+    batch = torch.broadcast_shapes(plan.Aeq.shape[:-2], plan.Aineq.shape[:-2])
+    eye = torch.eye(n, dtype=dt, device=dev)
+    C = torch.cat([plan.Aeq.expand(*batch, me, n),
+                   plan.Aineq.expand(*batch, mi, n),
+                   eye.expand(*batch, n, n)], dim=-2)
+    if opts.row_normalize:
+        # exact reparametrization: uniform dual pressure across rows
+        rn = torch.sqrt((C * C).sum(-1))
+        E = torch.where(rn > 1e-12, 1.0 / rn, 1.0)
+    else:
+        E = torch.ones(C.shape[:-1], dtype=dt, device=dev)
+    C = C * E[..., None]
+    rho_vec = torch.cat([
+        torch.full((me,), opts.rho * opts.rho_eq_scale, dtype=dt, device=dev),
+        torch.full((mi + n,), opts.rho, dtype=dt, device=dev)])
+    K = Q + opts.sigma * eye + (C.mT * rho_vec) @ C
+    return C, E, rho_vec, K, _jacobi_inverse(K)
+
+
+def _general_bounds(plan_s: ControlPlan, E: Tensor, x0: Tensor):
+    """Row-normalised two-sided bounds ``(l, u)`` of ``C = [Aeq; Aineq;
+    I]`` at ``x0`` (inequality rows have ``l = -inf``)."""
+    beq = plan_s.beq0 + _rowvec(x0, plan_s.Beqmap)
+    bineq = plan_s.bineq0 + _rowvec(x0, plan_s.Bineqmap)
+    n, mi = plan_s.lb.shape[-1], bineq.shape[-1]
+    batch = torch.broadcast_shapes(beq.shape[:-1], bineq.shape[:-1],
+                                   plan_s.lb.shape[:-1], E.shape[:-1])
+    beq = beq.expand(*batch, beq.shape[-1])
+    bineq = bineq.expand(*batch, mi)
+    lb = plan_s.lb.expand(*batch, n)
+    ub = plan_s.ub.expand(*batch, n)
+    ninf = torch.full((*batch, mi), -torch.inf, dtype=lb.dtype,
+                      device=lb.device)
+    l = E * torch.cat([beq, ninf, lb], dim=-1)
+    u = E * torch.cat([beq, bineq, ub], dim=-1)
+    return l, u
+
+
+_POLISH = ("options.polish=True on the general-row plan path needs the "
+           "active-set polish of qp/admm (_polish), which is not ported yet "
+           "(ROADMAP queue 1, item 4); pass polish=False")
+
+
+def _make_general_step(plan: ControlPlan, options: SolverOptions,
+                       seed_center, batched: bool, fused: bool):
+    """The general-row step: ``C = [Aeq; Aineq; I]`` and the KKT inverse are
+    x0-independent, so they are built once; per tick only the affine bound
+    stacks change.  Same correction-space substitution as the box path.
+    ``fused`` (batched shared f32 plans): the iterations run in
+    :func:`fused_admm_general_shared`; otherwise the plain iteration of the
+    reference's ``single``."""
+    opts = options.replace(early_exit=False)
+    C, E, rho_vec, K, Kinv = (t.contiguous()
+                              for t in _general_fast_state(plan, opts))
+    seed_map = make_seed_map(plan, center=seed_center)
+    dt = plan.Q.dtype
+    refine = _auto_refine(opts.kkt_refine, dt)
+    eps, eps_rel = _tolerances(opts, dt)
+    sigma, alpha = opts.sigma, opts.alpha
+    rho_inv = 1.0 / rho_vec
+
+    def iterate(l_e, u_e, e, z, y):
+        for _ in range(opts.max_iter):
+            rhs = sigma * e + matvec_t(C, rho_vec * z - y)
+            e_t = matvec(Kinv, rhs)
+            for _ in range(refine):
+                e_t = e_t + matvec(Kinv, rhs - matvec(K, e_t))
+            z_t = matvec(C, e_t)
+            e_n = alpha * e_t + (1 - alpha) * e
+            z_rel = alpha * z_t + (1 - alpha) * z
+            z = torch.clamp(z_rel + rho_inv * y, l_e, u_e)
+            y = y + rho_vec * (z_rel - z)
+            e = e_n
+        return e, y, z
+
+    def kernel(l_e, u_e, e, z, y):
+        return fused_admm_general_shared(
+            Kinv, K, C, rho_vec, l_e, u_e, e, y.contiguous(), z,
+            n_iter=opts.max_iter, sigma=sigma, alpha=alpha, refine=refine)
+
+    run = kernel if fused else iterate
+
+    @highest_precision
+    def single(plan_s, x0, warm):
+        x0 = as_tensor(x0, plan_s.Q.device).to(dt)
+        l, u = _general_bounds(plan_s, E, x0)
+        # correction space around the unconstrained seed
+        x_seed = seed_map.seed(x0)
+        Cxs = matvec(C, x_seed)
+        l_e = l - Cxs
+        u_e = u - Cxs
+        e0 = torch.zeros_like(x_seed)
+        z0 = torch.clamp(torch.zeros_like(l_e), l_e, u_e)
+        # external warm duals are in the original row metric
+        y0 = torch.zeros_like(l_e) if warm is None else warm.y / E
+        e, y, z = run(l_e, u_e, e0, z0, y0)
+        x = x_seed + e
+        c_tick = plan_s.c0 + _rowvec(x0, plan_s.Cmap)
+        Ce = matvec(C, e)
+        r_prim = _amax(Ce - z)
+        Qx = matvec(plan_s.Q, x)
+        CTy = matvec_t(C, y)
+        r_dual = _amax(Qx + c_tick + CTy)
+        d_scale = torch.maximum(_amax(Qx),
+                                torch.maximum(_amax(CTy), _amax(c_tick)))
+        conv = ((r_prim <= eps + eps_rel * _amax(Cxs + Ce))
+                & (r_dual <= eps + eps_rel * d_scale))
+        y_orig = E * y                 # back to the original metric
+        sol = QPSolution(
+            x=x, y=y_orig, z=Cxs + z, status=_status(conv),
+            iterations=_iterations(conv.shape, opts.max_iter, x.device),
+            primal_residual=r_prim, dual_residual=r_dual)
+        return x, sol, WarmStart(x=x, y=y_orig, z=Cxs + z)
+
+    single.state = (C, E, rho_vec, K, Kinv, seed_map)
+    if batched:
+        return single
+    return lambda x0, warm: single(plan, x0, warm)
+
+
 def make_plan_step(plan: ControlPlan,
                    options: SolverOptions = SolverOptions(),
                    batched: bool = False,
+                   use_fused: Optional[bool] = None,
                    seed_center=None,
                    accurate: bool = False,
                    accurate_rounds: int = 2):
-    """Build ``step(plan, x0, warm) -> (U, solution, next_warm)``.
+    """Build the serving step: ``step(plan, x0, warm) -> (U, solution,
+    next_warm)`` with ``batched=True`` (a leading lane dimension on ``x0``
+    and on any plan field), ``step(x0, warm)`` without.
+
+    Box-only plans (no eq/ineq rows) run a fixed count of pre-factorized
+    iterations from the unconstrained seed; plans with general rows run the
+    general-row step (``C = [Aeq; Aineq; I]`` factorized once).
+
+    ``use_fused`` (batched box-only f32 plans): the f32 fused tick through
+    the CUDA kernels, :func:`fused_admm_box_shared` for a shared plan and
+    :func:`fused_admm_box` for per-lane plans.  Default: on when the plan
+    lies on a CUDA device (the reference's "on for TPU backends").  For a
+    batched SHARED general-row f32 plan, ``use_fused=True`` (explicit only,
+    as in the reference) runs :func:`fused_admm_general_shared`.
 
     ``accurate`` (batched box-only plans): the f64-exact serving tick.  It
     returns ``U`` in float64, matching the exact solution of the plan's QP
     to ~1e-9 on unsaturated lanes: the seed map is applied in f64, the f32
     kernel computes only the bound-activation correction, and active
-    coordinates are snapped to their exact bounds in f64.
+    coordinates are snapped to their exact bounds in f64.  It runs the
+    kernels unless ``use_fused=False`` asks for their plain versions.
 
-    The other steps of the reference (the f32 fused and unbatched steps,
-    the general-row step) are not ported yet and raise
-    ``NotImplementedError``.
+    ``options.polish`` on the general-row path raises
+    ``NotImplementedError`` (ROADMAP queue 1, item 4).
     """
     box_only = plan.Aeq.shape[-2] == 0 and plan.Aineq.shape[-2] == 0
+    accurate_fused = use_fused is not False
+    explicit_fused = use_fused is True
+    if use_fused is None:
+        use_fused = plan.Q.device.type == "cuda"
+    f32_plan = plan.Q.dtype == torch.float32
+    use_fused = bool(use_fused and batched and box_only and f32_plan)
     if accurate:
         if not (batched and box_only):
             raise ValueError("accurate=True requires a batched box-only "
                              "plan (general rows: use the stagewise or "
                              "full-solver paths).")
         return _make_accurate_step(plan, options, seed_center,
-                                   rounds=max(int(accurate_rounds), 1))
-    if not box_only:
-        raise NotImplementedError(
-            "plan steps with general rows are not ported yet (ROADMAP "
-            "queue 1, item 4: qp/admm and the general plan path)")
-    raise NotImplementedError(
-        "the f32 plan steps (fused_step, single) are not ported yet "
-        "(ROADMAP queue 1, item 5); use accurate=True")
+                                   rounds=max(int(accurate_rounds), 1),
+                                   use_fused=accurate_fused)
+    if use_fused:
+        return _make_fused_step(plan, options, seed_center)
+    if box_only:
+        return _make_box_step(plan, options, seed_center, batched)
+    if options.polish:
+        raise NotImplementedError(_POLISH)
+    gen_fused = explicit_fused and batched and plan.Q.dim() == 2 and f32_plan
+    return _make_general_step(plan, options, seed_center, batched, gen_fused)

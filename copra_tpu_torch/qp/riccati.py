@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from .._precision import highest_precision
-from .._tensors import common, matvec as _mv, matvec_t as _mtv
+from .._tensors import (common, matvec as _mv, matvec_t as _mtv,
+                        resolve_device)
 from ..constraints import (Constraint, ControlBoundConstraint,
                            ControlConstraint, MixedConstraint,
                            TrajectoryBoundConstraint, TrajectoryConstraint)
@@ -144,7 +145,7 @@ def _blockdiag_blocks(Mfull, n_blocks: int, coldim: int):
     unit = max(1.0, float(np.abs(diag).max(initial=0.0)))
     if off.sum() > 1e-12 * unit * max(1, rows):
         return None
-    dev = Mfull.device if isinstance(Mfull, Tensor) else "cpu"
+    dev = Mfull.device if isinstance(Mfull, Tensor) else resolve_device()
     return torch.tensor(np.ascontiguousarray(diag), device=dev)
 
 

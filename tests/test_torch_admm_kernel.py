@@ -19,7 +19,10 @@ import torch
 
 from copra_tpu.ops.admm_kernel import (fused_admm_box_lanes as jax_lanes,
                                        pack_lanes_operator, xla_admm_box)
+from copra_tpu_torch import set_default_device
 from copra_tpu_torch.ops import admm_kernel as ak
+
+set_default_device("cpu")
 
 ITERS = 30
 SC = dict(sigma=1e-6, alpha=1.6, rho=0.2)

@@ -12,6 +12,8 @@ import copra_tpu as ct
 import copra_tpu_torch as tt
 from copra_tpu_torch.errors import DimensionError
 
+tt.set_default_device("cpu")
+
 TOL = dict(rtol=1e-12, atol=1e-12)
 X, U, N = 3, 2, 5
 FX, FU = X * (N + 1), U * N

@@ -67,7 +67,7 @@ def test_cuda_kernel_matches_plain_version(cuda, B, n):
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     shared = _problem(4, 10, shared=True)
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="fused_admm_box_shared"):
         ak.fused_admm_box(*shared, n_iter=ITERS, **SC)
     big = _problem(2, 200)
     with pytest.raises(ValueError, match="shared memory"):

@@ -22,6 +22,8 @@ from copra_tpu_torch.plan import _slice_plan
 from fixtures import (QLD_AEQ, QLD_AINEQ, QLD_BEQ, QLD_BINEQ, QLD_C, QLD_Q,
                       QLD_XL, QLD_XU)
 
+tt.set_default_device("cpu")
+
 LANES, HORIZON = 8, 20
 TICKS = 3
 STATIC = ("xdim", "udim", "horizon")
@@ -250,14 +252,17 @@ def test_plan_qp_and_trajectory_match_reference():
 
 
 def test_unported_plan_steps_raise():
+    """What the port still lacks raises: the general path's polish (it needs
+    qp/admm, item 4); the accurate tick takes batched box-only plans."""
     plan = _port_plan(60.0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tt.make_plan_step(plan, tt.SolverOptions(), batched=True)
     with pytest.raises(ValueError, match="batched box-only"):
         tt.make_plan_step(plan, tt.SolverOptions(), accurate=True)
-    rows = dataclasses.replace(plan, Aineq=torch.zeros(LANES, 1, HORIZON))
+    rows = dataclasses.replace(plan, Aineq=torch.zeros(LANES, 1, HORIZON),
+                               bineq0=torch.ones(LANES, 1),
+                               Bineqmap=torch.zeros(LANES, 2, 1))
     with pytest.raises(NotImplementedError, match="item 4"):
         tt.make_plan_step(rows, tt.SolverOptions(), batched=True)
+    tt.make_plan_step(rows, tt.SolverOptions(polish=False), batched=True)
 
 
 def test_native_binding_solves_qld_fixture():

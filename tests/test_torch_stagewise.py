@@ -30,6 +30,8 @@ from copra_tpu_torch.convert import stagewise_from_numpy
 from copra_tpu_torch.ops import stagewise_kernel as sk
 from copra_tpu_torch.qp import riccati as tr
 
+tt.set_default_device("cpu")
+
 FIELDS = [f.name for f in dataclasses.fields(jr.StagewiseQP)]
 SOLVE_TOL = 1e-9
 EXACT_TOL = 1e-12

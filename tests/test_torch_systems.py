@@ -13,6 +13,8 @@ import copra_tpu_torch as tt
 from copra_tpu_torch.errors import DimensionError
 from fixtures import A, B, D, SMALL_N, SMALL_X0, ltv_matrices
 
+tt.set_default_device("cpu")
+
 TOL = dict(rtol=1e-12, atol=1e-12)
 
 
