@@ -65,7 +65,46 @@ Phases, one line or more each:
     per-lane kernel's general body; rho from ``auto_rho`` of that step, as
     ``bench.py``'s plan mode): the kernel against its plain version at the
     serving rho, then 2 + 5 ticks: finite outputs, statuses 0 or 1 and
-    launches required, its oracle error printed.
+    launches required, its oracle error printed;
+14. the batched Cholesky kernel against its plain version and
+    ``torch.linalg.cholesky``: float32 at (B = 4096, n = 10) on config 1's
+    ``K = Q + (sigma + rho) I`` (one penalty per lane, spread over [rho,
+    2 rho]) and at (B = 4096, n = 100) on config 4's per-lane ``K``;
+    float64 at (B = 16, n = 24) on a spectrum spread 1e-6..1e4: ``max |L -
+    L_plain| <= 2e-5 max |L|`` in float32 and 1e-9 in float64, and ``max
+    |L L' - K| / max |K|`` <= 1e-5 and 1e-12; kernel, plain, library and
+    bound times;
+15. the per-lane general ADMM kernel against its plain version at full
+    width: config 2's costs and constraints on per-lane LTV dynamics (A and
+    B perturbed by 1e-3 per lane, so every lane has its own ``C``), B =
+    4096, n = 10, m = 85, 400 iterations, distinct non-zero x0, y0, z0,
+    within 2e-4 x max(1, max |plain|); then the kernels served: ``K`` per
+    lane factorized by ``chol_batched``, ``Kinv`` from the factor, and 2 +
+    5 warm-started ticks of ``fused_admm_general`` on drifting states, the
+    first (cold) tick held against the port's ``solve_qp_batched`` at the
+    fixed-count settings on the card (1e-3 x max(1, max |x|)), the last
+    tick's error against the native oracle printed;
+16. the general solver served: the same per-lane fleet through
+    ``solve_mpc_batch`` with default ``SolverOptions`` (early exit,
+    adaptive rho, polish) in float64, lanes 0, 1, 17, 4095 gated against
+    the native oracle (<= 1e-5), converged share, host and device ms per
+    solve; then in float32, error printed, not gated;
+17. ``bench.py``'s ``fused`` mode on the config-4 fleet: per tick
+    ``condense`` -> ``build_qp`` -> ``solve_qp_batched_fused`` with warm
+    starts (B = 4096, N = 100, 30 iterations), 2 + 5 ticks: solves/s, host
+    and device ms per tick, ``fused_admm_box`` launches required, oracle
+    error printed (not gated).  Then two polished calls at B = 256: on the
+    config-4 lanes, printed ungated (a float32 LU of the 1e8-conditioned
+    Hessian cannot place the free coordinates to 1e-4), and on
+    well-conditioned random box QPs of the same width (n = 100, the class
+    of the reference's own polished-fused test), gated <= 1e-4;
+18. the facade: ``bench_all.py`` config 8's controller (``LMPC``, LTI N =
+    100, target and control costs, a +-60 bound) in float64: ``solve()``,
+    then 5 ``set_initial_state`` + ``solve(warm_start=True)``, and the same
+    drive through ``LMPC(system, solver="active_set")``: max |control -
+    control_exact| <= 1e-5.  Then float32 budgets of 2, 5, 20 and 50 ms
+    through ``max_wall_time_ms``: ``deadline_info()`` and the measured
+    median wall per solve, printed.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  The line
@@ -119,8 +158,22 @@ C1_N, C1_ITERS, C1_ROUNDS = 10, 300, 3
 ROOF_N, ROOF_ITERS, ROOF_ROUNDS, ROOF_TICKS = 256, 30, 2, 20
 C2_N, C2_ITERS = 10, 400
 SHORT_TICKS = 5
-# one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
-F32_PEAK, HBM_RATE = 67e12, 3.35e12
+# one H100 SXM (NVIDIA's data sheet): f32 and f64 outside the tensor cores,
+# HBM3
+F32_PEAK, F64_PEAK, HBM_RATE = 67e12, 34e12, 3.35e12
+
+# the general solver and the facade (phases 14-18)
+ADMM_GENERAL_SOURCE = "copra_tpu_torch/csrc/admm_general.cu"
+CHOL_SOURCE = "copra_tpu_torch/csrc/chol_batched.cu"
+REPLACES_K7 = "copra_tpu/ops/admm_kernel.py:999"
+REPLACES_K8 = "copra_tpu/ops/cholesky_kernel.py:77"
+CHOL_F32_RTOL, CHOL_F32_REC = 2e-5, 1e-5
+CHOL_F64_TOL, CHOL_F64_REC = 1e-9, 1e-12
+SOLVER_TOL = 1e-3     # K7 vs solve_qp_batched, times max(1, max |x|)
+POLISHED_TOL = 1e-4   # polished fused solve vs the native oracle
+POLISH_LANES = 256
+FACADE_N, FACADE_TICKS = 100, 5
+BUDGETS_MS = (2.0, 5.0, 20.0, 50.0)
 
 
 def fail(msg: str):
@@ -684,10 +737,11 @@ def gate_stagewise(cfg, U):
 # ---------------------------------------------------------------------------
 
 
-def bound(flops: float, nbytes: float):
-    """``(bound_ms, bound_by)``: the larger of operations over the f32 peak
-    and bytes over the memory rate."""
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+def bound(flops: float, nbytes: float, peak: float = F32_PEAK):
+    """``(bound_ms, bound_by)``: the larger of operations over the peak
+    rate of their type (f32 unless given) and bytes over the memory
+    rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -718,6 +772,23 @@ def general_work(B: int, n: int, m: int, n_iter: int, refine: int):
     nbytes = 4.0 * (2 * m * n + 2 * n * n + m + B * (4 * m + n)
                     + B * (2 * m + n))
     return flops, nbytes
+
+
+def lane_general_work(B: int, n: int, m: int, n_iter: int):
+    """Operations and bytes of one per-lane general-ADMM call: per lane and
+    iteration w C and C x_t (2mn each), one product with Kinv (2n^2), ~14
+    operations per row and 6 per column; inputs Kinv, C, c, l, u, rho, x0,
+    y0, z0 read once, x, y, z written once."""
+    flops = n_iter * B * (4.0 * m * n + 2.0 * n * n + 14.0 * m + 6.0 * n)
+    nbytes = 4.0 * B * (n * n + m * n + 3 * n + 7 * m)
+    return flops, nbytes
+
+
+def chol_work(B: int, n: int, itemsize: int):
+    """Operations and bytes of one batched Cholesky: per matrix n^3 / 3 for
+    the rank-1 downdates of the lower triangle, n^2 / 2 for the column
+    scalings and 2n for the pivots; K read once, L written once."""
+    return B * (n ** 3 / 3.0 + n * n / 2.0 + 2.0 * n), 2.0 * B * n * n * itemsize
 
 
 def stagewise_flops(N: int, x: int, u: int, r: int, n_iter: int,
@@ -850,6 +921,23 @@ def build_roofline(tt, device, batch: int = 0, horizon: int = 0):
                 setup_s=time.perf_counter() - t0)
 
 
+def config2_terms(tt, dtype):
+    """Config 2's costs and constraints (``bench_all.py:config2``): a
+    trajectory, a control, a mixed and two bound constraints (fresh
+    instances: a control constraint registers with one controller only)."""
+    f = lambda a: np.asarray(a, dtype)
+    costs = (tt.TargetCost.create(f(np.eye(2)), f([0.0, 0.0]),
+                                  weights=f([10.0, 1.0])),
+             tt.ControlCost.create(f([[1.0]]), f([0.0]), weights=f([1e-3])))
+    constraints = (
+        tt.TrajectoryConstraint.create(f([[0.0, 1.0]]), f([1.5])),
+        tt.ControlConstraint.create(f([[1.0]]), f([1.9])),
+        tt.MixedConstraint.create(f([[1.0, 0.0]]), f([[0.1]]), f([3.0])),
+        tt.TrajectoryBoundConstraint.create(f([-5.0, -2.0]), f([5.0, 2.0])),
+        tt.ControlBoundConstraint.create(f([-2.0]), f([2.0])))
+    return costs, constraints
+
+
 def build_config2(tt, device, batch: int = 0):
     """``bench_all.py:config2``: LTI double integrator N = 10 with a
     trajectory, a control, a mixed and two bound constraints, all f32,
@@ -865,18 +953,7 @@ def build_config2(tt, device, batch: int = 0):
     t0 = time.perf_counter()
     f32 = lambda a: np.asarray(a, np.float32)
     system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(x0s[0]), N)
-    costs = (tt.TargetCost.create(f32(np.eye(2)), f32([0.0, 0.0]),
-                                  weights=f32([10.0, 1.0])),
-             tt.ControlCost.create(f32([[1.0]]), f32([0.0]),
-                                   weights=f32([1e-3])))
-    constraints = (
-        tt.TrajectoryConstraint.create(f32([[0.0, 1.0]]), f32([1.5])),
-        tt.ControlConstraint.create(f32([[1.0]]), f32([1.9])),
-        tt.MixedConstraint.create(f32([[1.0, 0.0]]), f32([[0.1]]),
-                                  f32([3.0])),
-        tt.TrajectoryBoundConstraint.create(f32([-5.0, -2.0]),
-                                            f32([5.0, 2.0])),
-        tt.ControlBoundConstraint.create(f32([-2.0]), f32([2.0])))
+    costs, constraints = config2_terms(tt, np.float32)
     plan = tt.make_control_plan(system, costs, constraints)
     opts = tt.SolverOptions(max_iter=C2_ITERS, early_exit=False,
                             polish=False)
@@ -1063,7 +1140,8 @@ def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
 
 
 def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts):
-    """Phases 8-13; returns the kernel records of K2, K3 and K6."""
+    """Phases 8-13; returns the kernel records of K2, K3 and K6, and the
+    configurations by name."""
     import torch
 
     cfgs = {}
@@ -1186,7 +1264,7 @@ def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts):
     r_err, r_ms, r_plain, r_bnd = k3[("roofline fleet",
                                       "refine 0, serving rho")]
     serving6 = k6["serving rho"]
-    return {
+    return cfgs, {
         "fused_admm_box": kernel_record(
             "fused_admm_box", KERNEL_SOURCE, REPLACES_K2, k2_launches, k2[0],
             k2[2], k2[3], k2[4]),
@@ -1200,6 +1278,452 @@ def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts):
     }
 
 
+# ---------------------------------------------------------------------------
+# The general solver and the facade: the Cholesky and per-lane general
+# kernels against their plain versions, and phases 14-18.
+# ---------------------------------------------------------------------------
+
+
+def chol_vs_plain(ck, K, label: str):
+    """The Cholesky kernel on ``K [B, n, n]`` against its plain version and
+    ``torch.linalg.cholesky``.  Returns ``(err, tol, rec, rec_tol, ms,
+    plain_ms, library_ms, bound)`` and fails the run on a disagreement."""
+    import torch
+
+    f64 = K.dtype == torch.float64
+    B, n = K.shape[0], K.shape[-1]
+    L = ck.chol_batched(K)
+    want = ck.chol_plain(K)
+    torch.cuda.synchronize()
+    if L.shape != K.shape or not bool(L.isfinite().all()):
+        fail(f"chol_batched ({label}): bad output")
+    if float(torch.triu(L, 1).abs().max()) != 0.0:
+        fail(f"chol_batched ({label}): the upper triangle is not zero")
+    err = float((L - want).abs().max())
+    tol = CHOL_F64_TOL if f64 else CHOL_F32_RTOL * float(want.abs().max())
+    rec = float((L @ L.mT - K).abs().max() / K.abs().max())
+    rec_tol = CHOL_F64_REC if f64 else CHOL_F32_REC
+    ms = _cuda_ms(lambda: ck.chol_batched(K), 10)
+    plain_ms = _cuda_ms(lambda: ck.chol_plain(K), 2)
+    lib_ms = _cuda_ms(lambda: torch.linalg.cholesky(K), 10)
+    bnd = bound(*chol_work(B, n, K.element_size()),
+                peak=F64_PEAK if f64 else F32_PEAK)
+    print(f"kernel chol_batched ({label}, B = {B}, n = {n}, "
+          f"{'float64' if f64 else 'float32'}): max |L - L_plain| {err:.3e} "
+          f"(tol {tol:.3e}), max |L L' - K| / max |K| {rec:.3e} (tol "
+          f"{rec_tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.linalg.cholesky {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})")
+    if not (err <= tol and rec <= rec_tol):
+        fail(f"chol_batched ({label}) disagrees with the plain version")
+    return err, tol, rec, rec_tol, ms, plain_ms, lib_ms, bnd
+
+
+def build_config2_ltv(tt, device, dtype, batch: int = 0):
+    """Config 2's costs and constraints on per-lane LTV dynamics: A and B
+    perturbed by 1e-3 per lane (``bench_all.py:config3``'s fleet), so every
+    lane has its own condensed rows.  Returns the batched system, the
+    terms and a drifting x0 sequence (numpy, float64)."""
+    import torch
+
+    N, batch = C2_N, batch or FLEET
+    A, B, d = double_integrator()
+    rng = np.random.default_rng(3)
+    As = np.repeat(np.repeat(A[None], N, 0)[None], batch, 0)
+    As += rng.normal(scale=1e-3, size=As.shape)
+    Bs = np.repeat(np.repeat(B[None], N, 0)[None], batch, 0)
+    Bs += rng.normal(scale=1e-3, size=Bs.shape)
+    ds = np.repeat(np.repeat(d[None], N, 0)[None], batch, 0)
+    x0s = np.array([1.0, 0.0])[None] + rng.normal(scale=[0.3, 0.2],
+                                                  size=(batch, 2))
+    drift = rng.normal(scale=0.02, size=(SHORT_TICKS + 2, batch, 2)).cumsum(0)
+    ten = lambda a: torch.tensor(np.asarray(a, dtype), device=device)
+    system = tt.LTVSystem(A=ten(As), B=ten(Bs), d=ten(ds), x0=ten(x0s))
+    costs, constraints = config2_terms(tt, dtype)
+    return system, costs, constraints, x0s[None] + drift
+
+
+def lane_oracle_error(tt, system, costs, constraints, u, x0, lanes):
+    """Max |u - exact| over ``lanes``: each lane's QP built by the port in
+    float64 from the lane's own dynamics and solved by the native oracle."""
+    import torch
+
+    errs = []
+    for lane in lanes:
+        one = tt.LTVSystem(A=system.A[lane].double(),
+                           B=system.B[lane].double(),
+                           d=system.d[lane].double(),
+                           x0=torch.tensor(np.asarray(x0[lane], np.float64),
+                                           device=system.A.device))
+        qp = tt.build_qp(tt.condense(one), one.x0, costs, constraints)
+        exact = tt.solve_qp_native(qp).x.numpy()
+        errs.append(float(np.abs(u[lane].double().cpu().numpy()
+                                 - exact).max()))
+    return max(errs)
+
+
+def _timed(fn, reps: int):
+    """``(last result, host ms, device ms)`` per call of ``fn`` over
+    ``reps`` calls, ended by a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        out = fn(i)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3 / reps,
+            ev[0].elapsed_time(ev[1]) / reps)
+
+
+def general_lanes_phase(tt, ak, ck, dev, reset_counts):
+    """Phase 15; returns K7's record fields and the launches of K7 and K8
+    on the served path."""
+    import torch
+
+    from copra_tpu_torch._tensors import matvec
+    from copra_tpu_torch.qp.admm import stack_constraints
+
+    f32 = torch.float32
+    system, costs, constraints, x0_seq = build_config2_ltv(tt, dev,
+                                                           np.float32)
+    opts = tt.SolverOptions(
+        max_iter=C2_ITERS, early_exit=False, scaling=0, row_normalize=False,
+        kkt_solve="inverse", kkt_refine=0, polish=False,
+        infeasibility_detection=False, seed="zero")
+    preview = tt.condense(system)
+
+    def lane_qp(x0):
+        return tt.build_qp(preview, torch.tensor(x0.astype(np.float32),
+                                                 device=dev),
+                           costs, constraints)
+
+    qp = lane_qp(x0_seq[0])
+    C, l, u, rho = (t.contiguous() for t in stack_constraints(qp, opts))
+    B, m, n = C.shape
+    eye = torch.eye(n, dtype=f32, device=dev)
+    K = (qp.Q + opts.sigma * eye + (C.mT * rho[:, None, :]) @ C).contiguous()
+    sc = dict(n_iter=opts.max_iter, sigma=opts.sigma, alpha=opts.alpha)
+
+    # the kernel against its plain version, from non-zero warm starts
+    rng = np.random.default_rng(15)
+    vec = lambda k: torch.tensor(0.1 * rng.normal(size=(B, k)), dtype=f32,
+                                 device=dev)
+    Kinv = torch.linalg.inv(K).contiguous()
+    x0v, y0v = vec(n), vec(m)
+    z0v = torch.clamp(vec(m), l, u)
+    args = (Kinv, C, qp.c.contiguous(), l, u, rho, x0v, y0v, z0v)
+    got = ak.fused_admm_general(*args, **sc)
+    want = ak.admm_general_plain(*args, **sc)
+    exact = ak.admm_general_plain(*(a.double() for a in args), **sc)
+    torch.cuda.synchronize()
+    err, tol = held(got, want)
+    ms = _cuda_ms(lambda: ak.fused_admm_general(*args, **sc), 10)
+    plain_ms = _cuda_ms(lambda: ak.admm_general_plain(*args, **sc), 2)
+    bnd = bound(*lane_general_work(B, n, m, opts.max_iter))
+    print(f"kernel fused_admm_general (config 2 on per-lane LTV dynamics, "
+          f"B = {B}, n = {n}, m = {m}, {opts.max_iter} iterations): "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); distance "
+          f"from the f64 iteration: kernel {_max_diff(got, exact):.3e}, "
+          f"plain {_max_diff(want, exact):.3e}")
+    if not err <= tol:
+        fail("fused_admm_general disagrees with the plain version")
+
+    # the kernels served: K per lane factorized by chol_batched, Kinv from
+    # the factor, warm-started fixed-count ticks of fused_admm_general
+    reset_counts()
+    S = 1.0 / torch.sqrt(torch.diagonal(K, dim1=-2, dim2=-1))
+    Ls = ck.chol_batched((K * S[:, :, None] * S[:, None, :]).contiguous())
+    Lsi = torch.linalg.solve_triangular(Ls, eye.expand_as(Ls), upper=False)
+    Kinv = ((Lsi.mT @ Lsi) * S[:, :, None] * S[:, None, :]).contiguous()
+    zeros = lambda k: torch.zeros((B, k), dtype=f32, device=dev)
+    state = {"warm": (zeros(n), zeros(m), zeros(m))}
+
+    def tick(t):
+        q = lane_qp(x0_seq[t])
+        _, lt, ut, _ = stack_constraints(q, opts)
+        x, y, z = ak.fused_admm_general(
+            Kinv, C, q.c.contiguous(), lt.contiguous(), ut.contiguous(), rho,
+            *state["warm"], **sc)
+        state["warm"] = (x, y, z)
+        return x
+
+    x_cold = tick(0)
+    sol = tt.solve_qp_batched(qp, opts)
+    torch.cuda.synchronize()
+    diff = float((x_cold - sol.x).abs().max())
+    stol = SOLVER_TOL * max(1.0, float(sol.x.abs().max()))
+    tick(1)
+    x, host_ms, dev_ms = _timed(lambda i: tick(2 + i), SHORT_TICKS)
+    k7, k8 = ak.fused_admm_general.launches, ck.chol_batched.launches
+    res = matvec(C, x)
+    _, lt, ut, _ = stack_constraints(lane_qp(x0_seq[-1]), opts)
+    viol = float(torch.clamp(torch.maximum(res - ut, lt - res), min=0).max())
+    oerr = lane_oracle_error(tt, system, costs, constraints, x, x0_seq[-1],
+                             (0, 1, 17, B - 1))
+    print(f"main path per-lane general ADMM (chol_batched -> Kinv -> "
+          f"fused_admm_general, {opts.max_iter} iterations per tick): "
+          f"{B * 1e3 / host_ms:.1f} solves/s, {host_ms:.4f} host ms/tick, "
+          f"{dev_ms:.4f} device ms/tick (CUDA events), {k7} "
+          f"fused_admm_general and {k8} chol_batched launches over "
+          f"{SHORT_TICKS + 2} ticks; cold tick vs solve_qp_batched at the "
+          f"fixed-count settings: max |x - x_solver| {diff:.3e} (tol "
+          f"{stol:.3e}); last tick: max row violation {viol:.3e}, "
+          f"max_err_vs_exact {oerr:.3e} (f32, fixed rho {opts.rho:g}, not "
+          f"gated)")
+    if not bool(x.isfinite().all()):
+        fail("per-lane general ADMM: non-finite solution")
+    if k7 == 0 or k8 == 0:
+        fail("the per-lane general path never launched its kernels")
+    if not diff <= stol:
+        fail("fused_admm_general disagrees with solve_qp_batched at the "
+             "fixed-count settings")
+    return (err, ms, plain_ms, bnd), k7, k8
+
+
+def served_general_solver(tt, dev):
+    """Phase 16: the per-lane config-2 fleet through ``solve_mpc_batch``
+    with default options, float64 gated, float32 printed."""
+    import torch
+
+    lanes = (0, 1, 17, FLEET - 1)
+    for dtype, gated in ((np.float64, True), (np.float32, False)):
+        system, costs, constraints, x0_seq = build_config2_ltv(tt, dev, dtype)
+        name = np.dtype(dtype).name
+
+        def solve(i):
+            x0 = torch.tensor(x0_seq[i].astype(dtype), device=dev)
+            return tt.solve_mpc_batch(system.with_x0(x0), costs, constraints)
+
+        solve(0)
+        res, host_ms, dev_ms = _timed(lambda i: solve(1 + i), 2)
+        sol = res.solution
+        if tuple(res.control.shape) != (FLEET, C2_N) or \
+                not bool(res.control.isfinite().all()):
+            fail(f"solve_mpc_batch ({name}): bad controls")
+        share = float((sol.status == 0).float().mean())
+        err = lane_oracle_error(tt, system, costs, constraints, res.control,
+                                x0_seq[2], lanes)
+        print(f"main path solve_mpc_batch (config 2 on per-lane LTV "
+              f"dynamics, B = {FLEET}, default options, {name}): "
+              f"{FLEET * 1e3 / host_ms:.1f} solves/s, {host_ms:.3f} host "
+              f"ms/solve, {dev_ms:.3f} device ms/solve (CUDA events), "
+              f"iterations {int(sol.iterations.min())}.."
+              f"{int(sol.iterations.max())}, converged share {share:.6f}, "
+              f"max_err_vs_exact {err:.3e} on lanes {list(lanes)}"
+              f"{'' if gated else ' (not gated)'}")
+        if gated and not err <= ORACLE_TOL:
+            fail(f"solve_mpc_batch ({name}): max_err_vs_exact {err:.3e} > "
+                 f"{ORACLE_TOL}")
+
+
+def served_fused_mode(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts):
+    """Phase 17: ``bench.py``'s fused mode on the config-4 fleet, and the
+    polished calls at B = 256.  Returns the ``fused_admm_box`` launches of
+    the served ticks."""
+    import torch
+
+    arrays, _, _ = build_fleet(BATCH, HORIZON)
+    system = tt.LTVSystem(*(torch.tensor(a, device=dev) for a in arrays))
+    costs = (tt.TargetCost.create(np.eye(2), [0.0, -1.0],
+                                  weights=[10.0, 1e4]),
+             tt.ControlCost.create([[1.0]], [2.0], weights=[1e-4]))
+    constraints = (tt.ControlBoundConstraint.create([-BOUND], [BOUND]),)
+    opts = tt.SolverOptions(max_iter=ITERS, early_exit=False, polish=False,
+                            rho=1.0, kkt_refine=0)
+    state = {"warm": None}
+
+    def tick(t, sys_=system, o=opts, warm=True):
+        sys_t = sys_.with_x0(x0_dev4[t][:sys_.A.shape[0]])
+        qp = tt.build_qp(tt.condense(sys_t), sys_t.x0, costs, constraints)
+        sol = ak.solve_qp_batched_fused(qp, o,
+                                        state["warm"] if warm else None)
+        if warm:
+            state["warm"] = tt.WarmStart(x=sol.x, y=sol.y, z=sol.z)
+        return sol
+
+    reset_counts()
+    tick(0)
+    tick(1)
+    sol, host_ms, dev_ms = _timed(lambda i: tick(2 + i), SHORT_TICKS)
+    launches = ak.fused_admm_box.launches
+    if tuple(sol.x.shape) != (BATCH, HORIZON) or \
+            not bool(sol.x.isfinite().all()):
+        fail("solve_qp_batched_fused: bad controls")
+    lanes = (0, 1, 17, BATCH - 1)
+    x0_last = x0_dev4[SHORT_TICKS + 1].cpu().numpy()
+    err = gate_vs_oracle(tt, plan4, sol.x, x0_last, lanes)
+    print(f"main path bench.py fused mode (config 4, condense -> build_qp "
+          f"-> solve_qp_batched_fused, {ITERS} iterations, rho 1.0): "
+          f"{BATCH * 1e3 / host_ms:.1f} solves/s, {host_ms:.4f} host "
+          f"ms/tick, {dev_ms:.4f} device ms/tick (CUDA events), {launches} "
+          f"fused_admm_box launches over {SHORT_TICKS + 2} ticks, converged "
+          f"share {float((sol.status == 0).float().mean()):.6f}, "
+          f"max_err_vs_exact {err:.3e} on lanes {list(lanes)} (not gated)")
+    if launches == 0:
+        fail("the fused mode never launched fused_admm_box")
+
+    # polished, B = 256: the config-4 lanes (printed), then well-conditioned
+    # random box QPs of the same width (gated)
+    P = min(POLISH_LANES, BATCH)
+    sub = tt.LTVSystem(*(torch.tensor(a[:P], device=dev) for a in arrays))
+    pol = tick(0, sys_=sub, o=opts.replace(max_iter=500, polish=True,
+                                           rho=opts4.rho), warm=False)
+    lanes = tuple(sorted({0, 1, min(17, P - 1), P - 1}))
+    err = gate_vs_oracle(tt, plan4, pol.x, x0_dev4[0].cpu().numpy(), lanes)
+    print(f"solve_qp_batched_fused(polish=True) on {P} config-4 lanes (500 "
+          f"iterations, rho {opts4.rho:.4g}): converged share "
+          f"{float((pol.status == 0).float().mean()):.6f}, max_err_vs_exact "
+          f"{err:.3e} on lanes {list(lanes)} (not gated: a float32 LU of "
+          f"the ~1e8-conditioned Hessian)")
+    rng = np.random.default_rng(6)
+    n = HORIZON
+    Ms = rng.normal(size=(P, n, n))
+    f32 = lambda a: a.astype(np.float32)
+    fields = dict(Q=f32(Ms @ Ms.transpose(0, 2, 1) + n * np.eye(n)),
+                  c=f32(200.0 * rng.normal(size=(P, n))),
+                  lb=f32(rng.uniform(-2.0, -0.5, size=(P, n))),
+                  ub=f32(rng.uniform(0.5, 2.0, size=(P, n))))
+    qp = tt.DenseQP.create(**{k: torch.tensor(v, device=dev)
+                              for k, v in fields.items()})
+    pol = ak.solve_qp_batched_fused(qp, tt.SolverOptions(
+        max_iter=ITERS, early_exit=False, polish=True, rho=100.0))
+    errs = []
+    for lane in lanes:
+        exact = tt.solve_qp_native(tt.DenseQP.create(
+            **{k: v[lane].astype(np.float64) for k, v in fields.items()}))
+        errs.append(float(np.abs(pol.x[lane].double().cpu().numpy()
+                                 - exact.x.numpy()).max()))
+    active = float(((pol.x <= qp.lb) | (pol.x >= qp.ub)).float().mean())
+    print(f"solve_qp_batched_fused(polish=True) on {P} random box QPs (n = "
+          f"{n}, Q = M M' + n I, {ITERS} iterations, rho 100): converged "
+          f"share {float((pol.status == 0).float().mean()):.6f}, active "
+          f"share {active:.3f}, max_err_vs_exact {max(errs):.3e} on lanes "
+          f"{list(lanes)} (tol {POLISHED_TOL})")
+    if not max(errs) <= POLISHED_TOL:
+        fail(f"polished fused solve: max_err_vs_exact {max(errs):.3e} > "
+             f"{POLISHED_TOL}")
+    return launches
+
+
+def facade_phase(tt, dev):
+    """Phase 18: config 8's controller through ``LMPC`` against the
+    active-set solver, then the ``max_wall_time_ms`` budgets."""
+    import torch
+
+    A, B, d = double_integrator(T=0.005)
+
+    def controller(dtype, **kw):
+        f = lambda a: torch.tensor(np.asarray(a, dtype), device=dev)
+        system = tt.LTISystem.create(f(A), f(B), f(d), f([0.0, -1.5]),
+                                     FACADE_N)
+        ctrl = tt.LMPC(system, **kw)
+        ctrl.add_cost(tt.TargetCost.create(f(np.eye(2)), f([0.0, -1.0]),
+                                           weights=f([10.0, 1e4])))
+        ctrl.add_cost(tt.ControlCost.create(f([[1.0]]), f([2.0]),
+                                            weights=f([1e-4])))
+        ctrl.add_constraint(tt.ControlBoundConstraint.create(f([-BOUND]),
+                                                             f([BOUND])))
+        return ctrl, f
+
+    rng = np.random.default_rng(8)
+    states = np.array([0.0, -1.5]) + rng.normal(scale=0.02,
+                                                size=(FACADE_TICKS, 2))
+    admm, f = controller(np.float64)
+    exact, _ = controller(np.float64, solver="active_set")
+    ok = admm.solve()
+    exact.solve()
+    errs = [float((admm.control() - exact.control()).abs().max())]
+    walls = []
+    for x0 in states:
+        admm.set_initial_state(f(x0))
+        exact.set_initial_state(f(x0))
+        ok = admm.solve(warm_start=True) and ok
+        exact.solve()
+        walls.append(admm.solve_time() * 1e3)
+        errs.append(float((admm.control() - exact.control()).abs().max()))
+    u = admm.control()
+    if tuple(u.shape) != (FACADE_N,) or not bool(u.isfinite().all()):
+        fail("LMPC: bad controls")
+    sat = float((u.abs() >= BOUND - 1e-9).float().mean())
+    print(f"main path LMPC facade (config 8's controller, LTI N = "
+          f"{FACADE_N}, float64, default options): solve() + "
+          f"{FACADE_TICKS} warm solves, all solved {ok}, "
+          f"{int(admm.results().solution.iterations)} iterations in the "
+          f"last, median solve_time {float(np.median(walls)):.3f} ms, "
+          f"saturated share {sat:.3f}; max |control - control_exact| "
+          f"{max(errs):.3e} against LMPC(solver='active_set') (tol "
+          f"{ORACLE_TOL})")
+    if not (ok and max(errs) <= ORACLE_TOL):
+        fail(f"LMPC: max |control - control_exact| {max(errs):.3e} > "
+             f"{ORACLE_TOL} or a solve failed")
+
+    for budget in BUDGETS_MS:
+        ctrl, f = controller(np.float32)
+        ctrl.options = tt.SolverOptions(max_iter=4000, early_exit=False,
+                                        polish=False,
+                                        max_wall_time_ms=budget)
+        ctrl.solve()
+        info = ctrl.deadline_info()
+        walls = []
+        for x0 in states:
+            ctrl.set_initial_state(f(x0))
+            t0 = time.perf_counter()
+            ctrl.solve(warm_start=True)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"LMPC max_wall_time_ms = {budget:g} ms (float32): "
+              f"budget_iters {info['budget_iters']}, marginal "
+              f"{info['marginal_ms_per_iter']:.5f} ms/iteration "
+              f"({info['calibration_basis']}), overhead "
+              f"{info['overhead_ms']:.3f} ms, feasible "
+              f"{info['budget_feasible']}; measured median wall "
+              f"{float(np.median(walls)):.3f} ms per solve (not gated)")
+
+
+def general_solver_phases(tt, ak, ck, dev, plan4, opts4, x0_dev4, c1,
+                          reset_counts):
+    """Phases 14-18; returns the ``fused_admm_box`` launches of phase 17 and
+    the kernel records of K7 and K8."""
+    import torch
+
+    f32 = torch.float32
+    # phase 14: the Cholesky kernel against its plain version and the library
+    p1, o1 = c1["plan"], c1["opts"]
+    n1 = p1.Q.shape[-1]
+    pen = o1.sigma + o1.rho * (1.0 + torch.arange(FLEET, device=dev) / FLEET)
+    K1 = (p1.Q.to(f32) + pen.to(f32)[:, None, None]
+          * torch.eye(n1, dtype=f32, device=dev)).contiguous()
+    c1k = chol_vs_plain(ck, K1, "config 1's K, one penalty per lane")
+    K4 = (plan4.Q.to(f32) + (opts4.sigma + opts4.rho) * torch.eye(
+        plan4.Q.shape[-1], dtype=f32, device=dev)).contiguous()
+    c4 = chol_vs_plain(ck, K4, "config 4's per-lane K")
+    rng = np.random.default_rng(0)
+    V = np.linalg.qr(rng.normal(size=(16, 24, 24)))[0]
+    K64 = torch.tensor((V * np.logspace(-6, 4, 24)) @ V.transpose(0, 2, 1)
+                       + (1e-6 + 0.1) * np.eye(24), device=dev)
+    c64 = chol_vs_plain(ck, K64, "spectrum 1e-6..1e4 + ridge")
+    chol_err = max(c[0] for c in (c1k, c4, c64))
+
+    k7, k7_launches, k8_launches = general_lanes_phase(tt, ak, ck, dev,
+                                                       reset_counts)
+    served_general_solver(tt, dev)
+    k2_launches = served_fused_mode(tt, ak, dev, plan4, opts4, x0_dev4,
+                                    reset_counts)
+    facade_phase(tt, dev)
+    return k2_launches, {
+        "fused_admm_general": kernel_record(
+            "fused_admm_general", ADMM_GENERAL_SOURCE, REPLACES_K7,
+            k7_launches, *k7),
+        "chol_batched": kernel_record(
+            "chol_batched", CHOL_SOURCE, REPLACES_K8, k8_launches,
+            chol_err, c4[4], c4[5], c4[7], library_ms=c4[6]),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1210,11 +1734,13 @@ def main() -> int:
     import copra_tpu_torch as tt
     from copra_tpu_torch.ops import admm_kernel as ak
     from copra_tpu_torch.ops import build
+    from copra_tpu_torch.ops import cholesky_kernel as ck
     from copra_tpu_torch.ops import stagewise_kernel as sk
 
     def reset_counts():
         for fn in (ak.fused_admm_box_lanes, ak.fused_admm_box,
                    ak.fused_admm_box_shared, ak.fused_admm_general_shared,
+                   ak.fused_admm_general, ck.chol_batched,
                    sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed):
             fn.launches = 0
 
@@ -1342,11 +1868,17 @@ def main() -> int:
             entry.__name__, STAGEWISE_SOURCE,
             STAGEWISE_REPLACES[entry.__name__], n, e32, ms, plain_ms, bnd)
 
-    kernels.update(shared_plan_phases(tt, ak, dev, plan, opts, x0_dev,
-                                      reset_counts))
+    cfgs, records = shared_plan_phases(tt, ak, dev, plan, opts, x0_dev,
+                                       reset_counts)
+    kernels.update(records)
+    k2_launches, records = general_solver_phases(
+        tt, ak, ck, dev, plan, opts, x0_dev, cfgs["config 1"], reset_counts)
+    kernels.update(records)
+    kernels["fused_admm_box"]["launches"] += k2_launches
     order = ("fused_admm_box_lanes", "fused_admm_box",
              "fused_admm_box_shared", "fused_stagewise_tick",
-             "fused_stagewise_tick_streamed", "fused_admm_general_shared")
+             "fused_stagewise_tick_streamed", "fused_admm_general_shared",
+             "fused_admm_general", "chol_batched")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,13 +2,17 @@
 
 The second implementation of the linear-MPC engine in ``copra_tpu``, which
 stays the reference.  Ported so far: condensing, cost and constraint
-lowering, QP assembly, control plans with every serving step of
+lowering, QP assembly, the general ADMM solver (``solve_qp``) with its
+registry, ``solve_mpc``, the ``LMPC`` facade and the scenario batch
+(``solve_mpc_batch``), control plans with every serving step of
 ``make_plan_step`` (the accurate and f32 fused ticks on per-lane and shared
 plans, the box-only and general-row steps), and the stagewise
-Riccati-in-ADMM engine with its serving tick.  Their ADMM iterations run in
-hand-written CUDA kernels (``csrc/admm_box.cu``, ``csrc/admm_box_shared.cu``,
-``csrc/admm_general_shared.cu``, ``csrc/stagewise_tick.cu``); on the CPU
-each kernel's plain PyTorch version runs instead.  Names match the
+Riccati-in-ADMM engine with its serving tick.  The fixed-count ADMM
+iterations and the batched Cholesky run in hand-written CUDA kernels
+(``csrc/admm_box.cu``, ``csrc/admm_box_shared.cu``,
+``csrc/admm_general_shared.cu``, ``csrc/admm_general.cu``,
+``csrc/chol_batched.cu``, ``csrc/stagewise_tick.cu``); on the CPU each
+kernel's plain PyTorch version runs instead.  Names match the
 reference's.  What the entry points build from numpy arrays and Python
 numbers goes to the package's default device, the GPU unless
 :func:`set_default_device` says otherwise.  Importing this package imports
@@ -24,10 +28,13 @@ from .costs import (ControlCost, CostFunction, MixedCost, SimpleControlCost,
                     SimpleTrajectoryCost, TargetCost, TrajectoryCost)
 from .errors import (CopraError, DimensionError, InfeasibleProblemError,
                      InitializationError, SolverError)
-from .mpc import HESSIAN_RIDGE, build_qp
+from .mpc import HESSIAN_RIDGE, LMPC, MPCResult, build_qp, solve_mpc
+from .parallel.batch import solve_mpc_batch
 from .plan import (ControlPlan, auto_rho, make_control_plan, make_plan_step,
                    make_seed_map, plan_qp, plan_trajectory, suggest_rho)
+from .qp.admm import solve_qp, solve_qp_batched
 from .qp.native import native_available, solve_qp_native
+from .qp.registry import available_solvers, get_solver, register_solver
 from .qp.riccati import (StagewiseQP, lqr_solve, make_stagewise_step,
                          scale_stagewise, solve_mpc_stagewise,
                          solve_stagewise, stack_stagewise, stagewise_scales)
@@ -41,7 +48,10 @@ __version__ = "0.1.0"
 
 __all__ = [
     "set_default_device", "default_device",
+    "LMPC", "MPCResult", "solve_mpc", "solve_mpc_batch",
     "build_qp", "HESSIAN_RIDGE",
+    "solve_qp", "solve_qp_batched",
+    "register_solver", "get_solver", "available_solvers",
     "ControlPlan", "make_control_plan", "make_plan_step", "make_seed_map",
     "plan_qp", "plan_trajectory", "auto_rho", "suggest_rho",
     "LTISystem", "LTVSystem", "Preview", "condense", "condense_lti",

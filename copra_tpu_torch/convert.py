@@ -14,6 +14,7 @@ import torch
 from ._tensors import resolve_device
 from .plan import ControlPlan
 from .qp.riccati import StagewiseQP
+from .qp.types import DenseQP, WarmStart
 from .systems import LTISystem, LTVSystem
 
 _STATIC = ("xdim", "udim", "horizon")
@@ -54,3 +55,18 @@ def stagewise_from_numpy(fields: Mapping[str, np.ndarray],
         v = fields.get(f.name)
         kw[f.name] = None if v is None else _tensor(v, device)
     return StagewiseQP(**kw)
+
+
+def qp_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> DenseQP:
+    """``DenseQP`` from a mapping of field name to array (the leaves of a
+    reference ``DenseQP``, single or batched), dtypes kept."""
+    return DenseQP(**{f.name: _tensor(fields[f.name], device)
+                      for f in dataclasses.fields(DenseQP)})
+
+
+def warm_from_numpy(fields: Mapping[str, np.ndarray],
+                    device=None) -> WarmStart:
+    """``WarmStart`` from a mapping with ``x``, ``y`` and ``z`` (for
+    example the fields of a reference ``QPSolution``), dtypes kept."""
+    return WarmStart(**{k: _tensor(fields[k], device)
+                        for k in ("x", "y", "z")})

@@ -1,7 +1,7 @@
 """Fixed-count ADMM over a batch of lanes: the plain PyTorch versions and
 the wrappers of the hand-written CUDA kernels.
 
-Port of ``copra_tpu/ops/admm_kernel.py``.  Three kernels serve four entry
+Port of ``copra_tpu/ops/admm_kernel.py``.  Four kernels serve five entry
 points:
 
 * ``copra_tpu_torch/csrc/admm_box.cu``: :func:`fused_admm_box_lanes` and
@@ -22,12 +22,21 @@ points:
   ``C [m, n]`` and one penalty per row (the TPU's
   ``fused_admm_general_shared``), a dependent chain of small products per
   lane: one warp per lane.
+* ``copra_tpu_torch/csrc/admm_general.cu``: :func:`fused_admm_general`,
+  general ADMM in x-space with a dense ``C [B, m, n]``, penalties
+  ``rho [B, m]`` and ``Kinv [B, n, n]`` per lane (the TPU's
+  ``fused_admm_general``), the fixed-count iteration of
+  :func:`copra_tpu_torch.qp.admm.solve_qp` with ``kkt_solve="inverse"`` and
+  no refinement: one warp per lane, its operators staged in shared memory
+  where they fit.
 
 :func:`admm_box_plain` (the counterpart of ``xla_admm_box``, rank-3 or
-rank-2 operators) and :func:`admm_general_shared_plain` are the plain
-versions.
+rank-2 operators), :func:`admm_general_shared_plain` and
+:func:`admm_general_plain` are the plain versions.
+:func:`solve_qp_batched_fused` is the reference's batched box-only solve
+over :func:`fused_admm_box`.
 
-The TPU-only layout machinery is not ported: ``pack_lanes_operator``,
+The TPU-only layout machinery is not ported: ``sub_batch``, ``pack_lanes_operator``,
 ``_pack_lanes_vec``/``_unpack_lanes_vec`` and ``_pad8`` (the lane-major
 ``[nc, n8, n8, 128]`` packing and its identity pad existed for Mosaic's
 vector layout), ``lanes_kernel_fits``/``default_sub_batch`` and
@@ -47,6 +56,10 @@ from typing import Tuple
 
 import torch
 
+from .._precision import highest_precision
+from ..qp.admm import _inf_norm, _jacobi_inverse, _polish, _tolerances
+from ..qp.types import (STATUS_MAX_ITER, STATUS_SOLVED, DenseQP, QPSolution,
+                        SolverOptions)
 from .build import load_library
 
 Tensor = torch.Tensor
@@ -159,6 +172,33 @@ def admm_general_shared_plain(Kinv: Tensor, K: Tensor, C: Tensor,
     return e, y, z
 
 
+def admm_general_plain(Kinv: Tensor, C: Tensor, c: Tensor, l: Tensor,
+                       u: Tensor, rho: Tensor, x0: Tensor, y0: Tensor,
+                       z0: Tensor, *, n_iter: int, sigma: float, alpha: float
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of the per-lane general kernel: the update
+    order of the reference body (``_general_kernel``) on batched tensors.
+    ``Kinv [B, n, n]``, ``C [B, m, n]``, ``c``/``x0 [B, n]``,
+    ``l``/``u``/``rho``/``y0``/``z0 [B, m]``.  Returns ``(x, y, z)``.
+
+    ``rhs Kinv`` contracts ``Kinv``'s first axis, as the reference does (an
+    explicit inverse is symmetric only to rounding).  Products are summed
+    in the inputs' dtype, as the kernel's f32 sums."""
+    oma = 1.0 - alpha
+    rho_inv = 1.0 / rho
+    x, z, y = x0, z0, y0
+    for _ in range(n_iter):
+        rhs = sigma * x - c + _mv(rho * z - y, C)
+        x_t = _mv(rhs, Kinv)
+        z_t = torch.bmm(C, x_t.unsqueeze(-1)).squeeze(-1)
+        x = alpha * x_t + oma * x
+        z_rel = alpha * z_t + oma * z
+        z_n = torch.clamp(z_rel + rho_inv * y, l, u)
+        y = y + rho * (z_rel - z_n)
+        z = z_n
+    return x, y, z
+
+
 # ctypes signatures of each kernel library: {symbol: (restype, argtypes)}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -184,6 +224,12 @@ _SIGNATURES = {
         "copra_admm_general_shared_max_m": (_I, []),
         "copra_admm_general_shared_max_smem": (_I, [_I]),
         "copra_admm_general_shared_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "admm_general": {
+        "copra_admm_general": (_I, [_P] * 12 + [_I] * 4 + [_F] * 3 + [_I, _P]),
+        "copra_admm_general_max_n": (_I, []),
+        "copra_admm_general_max_m": (_I, []),
+        "copra_admm_general_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 _loaded = {}
@@ -412,7 +458,125 @@ def fused_admm_general_shared(Kinv: Tensor, K: Tensor, C: Tensor,
     return out
 
 
+def _launch_general(Kinv, C, c, l, u, rho, x0, y0, z0, *, n_iter, sigma,
+                    alpha):
+    if C.dim() != 3:
+        raise ValueError(
+            f"C must be per lane, [B, m, n], got {tuple(C.shape)}; a shared "
+            f"[m, n] matrix goes to fused_admm_general_shared")
+    B, m, n = C.shape
+    dev = Kinv.device
+    _check((("Kinv", Kinv, (B, n, n)), ("C", C, (B, m, n)), ("c", c, (B, n)),
+            ("l", l, (B, m)), ("u", u, (B, m)), ("rho", rho, (B, m)),
+            ("x0", x0, (B, n)), ("y0", y0, (B, m)), ("z0", z0, (B, m))), dev)
+    _counts(n_iter, 0)
+    lib = _load("admm_general")
+    max_n = lib.copra_admm_general_max_n()
+    max_m = lib.copra_admm_general_max_m()
+    if B < 1 or n < 1 or m < 1 or n > max_n or m > max_m:
+        raise ValueError(
+            f"admm_general kernel: (B, n, m) = ({B}, {n}, {m}); it takes "
+            f"B, n, m >= 1, n <= {max_n} and m <= {max_m}")
+    outs = (torch.empty_like(x0), torch.empty_like(y0), torch.empty_like(z0))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.copra_admm_general(
+            *(t.data_ptr() for t in (Kinv, C, c, l, u, rho, x0, y0, z0,
+                                     *outs)),
+            B, n, m, int(n_iter), float(sigma), float(alpha),
+            float(1.0 - alpha), dev.index, stream)
+    _raise_on(rc, lib, "copra_admm_general")
+    return outs
+
+
+def fused_admm_general(Kinv: Tensor, C: Tensor, c: Tensor, l: Tensor,
+                       u: Tensor, rho: Tensor, x0: Tensor, y0: Tensor,
+                       z0: Tensor, *, n_iter: int, sigma: float,
+                       alpha: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """General fused ADMM with operators PER LANE: ``Kinv [B, n, n]``,
+    ``C [B, m, n]``, ``c``/``x0 [B, n]``, ``l``/``u``/``rho``/``y0``/``z0
+    [B, m]``, all f32, n <= 128 and m <= 384.  Returns ``(x, y, z)``.  CPU
+    tensors run :func:`admm_general_plain`; CUDA tensors launch
+    ``csrc/admm_general.cu``.  The TPU's ``sub_batch`` and ``interpret``
+    have no meaning here."""
+    kw = dict(n_iter=n_iter, sigma=sigma, alpha=alpha)
+    if Kinv.device.type == "cpu":
+        return admm_general_plain(Kinv, C, c, l, u, rho, x0, y0, z0, **kw)
+    out = _launch_general(Kinv, C, c, l, u, rho, x0, y0, z0, **kw)
+    fused_admm_general.launches += 1
+    return out
+
+
+@highest_precision
+def solve_qp_batched_fused(qp: DenseQP, options=None, warm_start=None
+                           ) -> QPSolution:
+    """Batched box-only QP solve through the fused kernel
+    (:func:`fused_admm_box`, ``refine=1``).
+
+    Drop-in for ``solve_qp_batched`` when the QPs have no eq/ineq rows,
+    ``early_exit=False`` semantics are acceptable, and f32 is the compute
+    dtype: the production receding-horizon configuration.  Residuals,
+    status, and (optional) polish run vectorized outside the kernel.
+    """
+    options = options or SolverOptions()
+    if qp.nr_eq or qp.nr_ineq:
+        raise ValueError("fused batched path is box-only; use solve_qp_"
+                         "batched for general constraint rows.")
+    Q = qp.Q
+    if Q.dim() != 3:
+        raise ValueError("expected a batched QP (Q of rank 3).")
+    B, n, _ = Q.shape
+    dt, dev = torch.float32, Q.device
+    Q = Q.to(dt)
+    c = qp.c.expand(B, n).to(dt).contiguous()
+    lb = qp.lb.expand(B, n).to(dt).contiguous()
+    ub = qp.ub.expand(B, n).to(dt).contiguous()
+
+    sigma, rho, alpha = options.sigma, options.rho, options.alpha
+    K = (Q + (sigma + rho) * torch.eye(n, dtype=dt, device=dev)).contiguous()
+    # symmetric Jacobi preconditioning, as in solve_qp
+    Kinv = _jacobi_inverse(K).contiguous()
+
+    if warm_start is not None:
+        x0, y0, z0 = (getattr(warm_start, f).to(dt).contiguous()
+                      for f in ("x", "y", "z"))
+    else:
+        x0 = y0 = z0 = torch.zeros((B, n), dtype=dt, device=dev)
+
+    x, y, z, gq = fused_admm_box(
+        Kinv, K, c, lb, ub, x0, y0, z0, n_iter=options.max_iter,
+        sigma=sigma, alpha=alpha, rho=rho, refine=1)
+
+    if options.polish:
+        one = DenseQP(Q=Q, c=c, Aeq=qp.Aeq.to(dt), beq=qp.beq.to(dt),
+                      Aineq=qp.Aineq.to(dt), bineq=qp.bineq.to(dt), lb=lb,
+                      ub=ub)
+        x, y = _polish(one, torch.eye(n, dtype=dt, device=dev), lb, ub, x, y,
+                       z, options)
+        z = torch.clamp(x, lb, ub)
+        # polish replaced x, so the kernel's Q x no longer holds
+        gq = torch.bmm(Q, x.unsqueeze(-1)).squeeze(-1)
+
+    # unscaled residuals (C = I)
+    r_prim = _inf_norm(x - z)
+    r_dual = _inf_norm(gq + c + y)
+    eps_abs, eps_rel = _tolerances(options, dt)
+    scale_p = torch.maximum(_inf_norm(x), _inf_norm(z))
+    # dual scale follows the OSQP convention max(|Qx|, |C'y|, |c|): the
+    # gradient TERMS, never the gradient itself.  C = I on this box-only
+    # path, so C'y = y.
+    scale_d = torch.maximum(_inf_norm(gq),
+                            torch.maximum(_inf_norm(y), _inf_norm(c)))
+    conv = ((r_prim <= eps_abs + eps_rel * scale_p)
+            & (r_dual <= eps_abs + eps_rel * scale_d))
+    status = torch.where(conv, STATUS_SOLVED, STATUS_MAX_ITER).to(torch.int32)
+    iters = torch.full((B,), options.max_iter, dtype=torch.int32, device=dev)
+    return QPSolution(x=x, y=y, z=z, status=status, iterations=iters,
+                      primal_residual=r_prim, dual_residual=r_dual)
+
+
 fused_admm_box_lanes.launches = 0
 fused_admm_box.launches = 0
 fused_admm_box_shared.launches = 0
 fused_admm_general_shared.launches = 0
+fused_admm_general.launches = 0

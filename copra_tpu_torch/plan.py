@@ -11,9 +11,9 @@ Ported here: :class:`ControlPlan`, :func:`make_control_plan`,
 :func:`auto_rho`, :func:`suggest_rho` and every step of
 :func:`make_plan_step`: the accurate tick (per-lane and shared operators),
 the f32 fused tick, the box-only and general-row steps (batched and
-unbatched) and the general tick through the shared general kernel.  Not
-ported yet: the general path's ``polish`` (it needs ``qp/admm``'s
-``_polish``, ROADMAP queue 1, item 4) and ``make_plan_multistep`` (item 5).
+unbatched) and the general tick through the shared general kernel, with the
+general path's ``polish`` through ``qp/admm``'s ``_polish``.  Not ported
+yet: ``make_plan_multistep``.
 
 Where the reference vmaps over a fleet, the port takes a batch dimension:
 ``make_control_plan`` of an :class:`LTVSystem` whose ``A`` is
@@ -47,6 +47,7 @@ from .mpc import build_qp
 from .ops.admm_kernel import (admm_box_plain, fused_admm_box,
                                fused_admm_box_lanes, fused_admm_box_shared,
                                fused_admm_general_shared)
+from .qp.admm import _auto_refine, _jacobi_inverse, _polish, _tolerances
 from .qp.native import solve_qp_native
 from .qp.types import DenseQP, QPSolution, SolverOptions, WarmStart
 from .systems import System, condense
@@ -145,16 +146,6 @@ def plan_trajectory(plan: ControlPlan, x0, U) -> Tensor:
                                  device=plan.Phi.device)
     return ((Phi @ x0.unsqueeze(-1)).squeeze(-1)
             + (Psi @ U.unsqueeze(-1)).squeeze(-1) + xi)
-
-
-def _jacobi_inverse(Mat: Tensor) -> Tensor:
-    """Symmetric-Jacobi-preconditioned explicit inverse (batched)."""
-    S = 1.0 / torch.sqrt(torch.diagonal(Mat, dim1=-2, dim2=-1))
-    Ms = Mat * S[..., :, None] * S[..., None, :]
-    Ls = torch.linalg.cholesky(Ms)
-    eye = torch.eye(Mat.shape[-1], dtype=Mat.dtype, device=Mat.device)
-    Lsi = torch.linalg.solve_triangular(Ls, eye.expand_as(Ls), upper=False)
-    return (Lsi.transpose(-1, -2) @ Lsi) * S[..., :, None] * S[..., None, :]
 
 
 @highest_precision
@@ -328,20 +319,6 @@ def suggest_rho(plan: ControlPlan, sample_lanes: int = 4) -> float:
     :func:`auto_rho` is the robust choice for fixed-count serving."""
     gm, _, _ = _spectral_gm(plan, sample_lanes)
     return 0.1 * gm
-
-
-def _auto_refine(kkt_refine: int, dt: torch.dtype) -> int:
-    """``kkt_refine``, or when negative (auto) one refinement step in f32
-    and none in f64."""
-    if kkt_refine >= 0:
-        return kkt_refine
-    return 1 if torch.finfo(dt).eps > 1e-10 else 0
-
-
-def _tolerances(opts: SolverOptions, dt: torch.dtype):
-    """OSQP-convention ``(eps_abs, eps_rel)`` with the dtype floor."""
-    floor = 25.0 * float(torch.finfo(dt).eps)
-    return max(opts.eps_abs, floor), max(opts.eps_rel, floor)
 
 
 def _amax(t: Tensor) -> Tensor:
@@ -624,11 +601,6 @@ def _general_bounds(plan_s: ControlPlan, E: Tensor, x0: Tensor):
     return l, u
 
 
-_POLISH = ("options.polish=True on the general-row plan path needs the "
-           "active-set polish of qp/admm (_polish), which is not ported yet "
-           "(ROADMAP queue 1, item 4); pass polish=False")
-
-
 def _make_general_step(plan: ControlPlan, options: SolverOptions,
                        seed_center, batched: bool, fused: bool):
     """The general-row step: ``C = [Aeq; Aineq; I]`` and the KKT inverse are
@@ -684,6 +656,17 @@ def _make_general_step(plan: ControlPlan, options: SolverOptions,
         e, y, z = run(l_e, u_e, e0, z0, y0)
         x = x_seed + e
         c_tick = plan_s.c0 + _rowvec(x0, plan_s.Cmap)
+        if opts.polish:
+            # active-set KKT polish (same machinery as the full solver)
+            # recovers exactness once ADMM has identified the active set
+            me, mi = plan_s.Aeq.shape[-2], plan_s.Aineq.shape[-2]
+            qp_t = DenseQP(Q=plan_s.Q, c=c_tick, Aeq=plan_s.Aeq,
+                           beq=l[..., :me], Aineq=plan_s.Aineq,
+                           bineq=u[..., me:me + mi], lb=plan_s.lb,
+                           ub=plan_s.ub)
+            x, y = _polish(qp_t, C, l, u, x, y, Cxs + z, opts)
+            e = x - x_seed
+            z = torch.clamp(matvec(C, e), l_e, u_e)
         Ce = matvec(C, e)
         r_prim = _amax(Ce - z)
         Qx = matvec(plan_s.Q, x)
@@ -735,8 +718,8 @@ def make_plan_step(plan: ControlPlan,
     coordinates are snapped to their exact bounds in f64.  It runs the
     kernels unless ``use_fused=False`` asks for their plain versions.
 
-    ``options.polish`` on the general-row path raises
-    ``NotImplementedError`` (ROADMAP queue 1, item 4).
+    ``options.polish`` on the general-row path runs the active-set polish
+    of :mod:`copra_tpu_torch.qp.admm` on each tick's iterate.
     """
     box_only = plan.Aeq.shape[-2] == 0 and plan.Aineq.shape[-2] == 0
     accurate_fused = use_fused is not False
@@ -757,7 +740,5 @@ def make_plan_step(plan: ControlPlan,
         return _make_fused_step(plan, options, seed_center)
     if box_only:
         return _make_box_step(plan, options, seed_center, batched)
-    if options.polish:
-        raise NotImplementedError(_POLISH)
     gen_fused = explicit_fused and batched and plan.Q.dim() == 2 and f32_plan
     return _make_general_step(plan, options, seed_center, batched, gen_fused)

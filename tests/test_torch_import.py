@@ -13,6 +13,13 @@ import sys
 import copra_tpu_torch
 import copra_tpu_torch.convert, copra_tpu_torch.ops.admm_kernel
 import copra_tpu_torch.plan, copra_tpu_torch.qp.native
+import copra_tpu_torch.qp.admm, copra_tpu_torch.qp.registry
+import copra_tpu_torch.ops.cholesky_kernel, copra_tpu_torch.mpc
+import copra_tpu_torch.profiling, copra_tpu_torch.parallel
+import copra_tpu_torch.parallel.batch, copra_tpu_torch.ops.stagewise_kernel
+import copra_tpu_torch.qp.riccati
+copra_tpu_torch.LMPC, copra_tpu_torch.solve_qp_batched
+copra_tpu_torch.solve_mpc_batch, copra_tpu_torch.get_solver
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'copra_tpu'))
 print(bad)

@@ -252,17 +252,31 @@ def test_plan_qp_and_trajectory_match_reference():
 
 
 def test_unported_plan_steps_raise():
-    """What the port still lacks raises: the general path's polish (it needs
-    qp/admm, item 4); the accurate tick takes batched box-only plans."""
-    plan = _port_plan(60.0)
+    """The accurate tick takes batched box-only plans and raises otherwise.
+    The general path's polish, which used to raise for want of ``_polish``,
+    runs: a per-lane plan with one inactive inequality row per lane gives
+    the box plan's exact solution (1e-5 against the native oracle)."""
+    plan = _port_plan(78.0)
     with pytest.raises(ValueError, match="batched box-only"):
         tt.make_plan_step(plan, tt.SolverOptions(), accurate=True)
-    rows = dataclasses.replace(plan, Aineq=torch.zeros(LANES, 1, HORIZON),
-                               bineq0=torch.ones(LANES, 1),
-                               Bineqmap=torch.zeros(LANES, 2, 1))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tt.make_plan_step(rows, tt.SolverOptions(), batched=True)
-    tt.make_plan_step(rows, tt.SolverOptions(polish=False), batched=True)
+    dt = plan.Q.dtype
+    rows = dataclasses.replace(
+        plan, Aineq=torch.zeros(LANES, 1, HORIZON, dtype=dt),
+        bineq0=torch.ones(LANES, 1, dtype=dt),
+        Bineqmap=torch.zeros(LANES, 2, 1, dtype=dt))
+    _, x0s, x0_seq = _fleet()
+    errs = {}
+    for polish in (True, False):
+        step = tt.make_plan_step(rows, tt.SolverOptions(
+            max_iter=100, rho=tt.suggest_rho(plan), polish=polish),
+            batched=True, seed_center=x0s)
+        u, sol, _ = step(rows, torch.tensor(x0_seq[0]), None)
+        assert tuple(u.shape) == (LANES, HORIZON)
+        errs[polish] = max(
+            np.abs(u[lane].numpy().astype(np.float64)
+                   - _exact(plan, lane, x0_seq[0][lane])).max()
+            for lane in (0, LANES - 1))
+    assert errs[True] <= 1e-5 and errs[False] <= 1e-5
 
 
 def test_native_binding_solves_qld_fixture():

@@ -259,11 +259,47 @@ def test_plain_steps_match_reference_f64(general, layout):
 
 
 def test_general_polish_raises():
+    """The general path's polish used to raise for want of ``_polish``; it
+    now runs (default options polish), unbatched and batched, and meets
+    the native oracle (1e-5, the library's accuracy contract)."""
     tplan = _port(_jax_plan(True, False, False))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tt.make_plan_step(tplan, tt.SolverOptions(polish=True), batched=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tt.make_plan_step(tplan, tt.SolverOptions(), use_fused=True)
+    x0 = torch.tensor(_x0s(7))
+    u, sol, warm = tt.make_plan_step(tplan, tt.SolverOptions(max_iter=100),
+                                     batched=True)(tplan, x0, None)
+    u1, sol1, _ = tt.make_plan_step(tplan, tt.SolverOptions(max_iter=100),
+                                    use_fused=True)(x0[0], None)
+    np.testing.assert_allclose(_np(u1), _np(u[0]), rtol=0, atol=1e-9)
+    assert int(sol1.status) == 0 and (_np(sol.status) == 0).all()
+    for lane in range(LANES):
+        exact = tt.solve_qp_native(tt.plan_qp(tplan, _np(x0[lane]))).x.numpy()
+        assert np.abs(_np(u[lane]) - exact).max() <= 1e-5
+    assert tuple(warm.y.shape) == (LANES, sol.y.shape[-1])
+
+
+@pytest.mark.parametrize("layout", ["unbatched", "shared", "per_lane"])
+def test_polished_general_step_matches_reference(layout):
+    """The polished general step against the reference's
+    ``make_plan_step(..., polish=True)`` over two warm ticks in f64:
+    solution, duals and residuals to 1e-8 (both polish to the same vertex;
+    LAPACK's LU and XLA's pivot alike but sum in another order), equal
+    statuses."""
+    jplan = _jax_plan(True, layout == "per_lane", False)
+    tplan = _port(jplan)
+    batched = layout != "unbatched"
+    kw = dict(max_iter=100, polish=True)
+    jstep = jax_make_step(jplan, ct.SolverOptions(**kw), batched=batched,
+                          use_fused=False, seed_center=SMALL_X0)
+    tstep = tt.make_plan_step(tplan, tt.SolverOptions(**kw), batched=batched,
+                              seed_center=SMALL_X0)
+    (uj, sj, wj), (ut, st, wt) = _ticks(jstep, tstep, jplan, tplan, batched)
+    for name, g, w in (("U", ut, uj), ("y", st.y, sj.y), ("z", st.z, sj.z),
+                       ("warm y", wt.y, wj.y),
+                       ("prim", st.primal_residual, sj.primal_residual),
+                       ("dual", st.dual_residual, sj.dual_residual)):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-8,
+                                   atol=1e-8, err_msg=name)
+    np.testing.assert_array_equal(_np(st.status), np.asarray(sj.status))
+    assert (_np(st.status) == 0).all()
 
 
 # --------------------------------------------------------------------------
