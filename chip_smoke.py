@@ -21,7 +21,10 @@ Phases, one line or more each:
    entry points, on the config-5 and config-6 serving plans from a warm
    tuple of the serving path: float64 within 1e-9 (the reference's
    fused-vs-XLA tolerance), float32 within 1e-4 x max(1, max |plain|),
-   with both times (the plain version timed once);
+   with both times (the plain version timed once), the bound, the chain of
+   2 N n_iter dependent stage steps and the cycles per step at the SM's
+   maximum clock; then the same kernel on (3, 2, 0), (6, 2, 4) and
+   (32, 32, 32) with small N and lane counts that are not multiples of 32;
 6. config 6 (``bench_all.py``'s SRB quadruped: x = u = r = 12, N = 40,
    128 robots, equilibrated by ``stagewise_scales``, eps_abs 1e-4, rho
    0.1, 300 cold and 50 warm iterations with a 200-iteration top-up)
@@ -145,6 +148,10 @@ F32_RTOL = 1e-4       # kernel vs plain, float32, times max(1, max |plain|)
 REL_TOL = 1e-4        # served controls vs the native oracle, relative
 WARMUP_TICKS, TIMED_TICKS = 2, 7
 QUAD_ROBOTS, QUAD_N = 128, 40
+# the tick kernel on more of its envelope, (N, x, u, r, lanes): the
+# reference's box-only test shape, a resident-class shape, and a wide shape
+# whose float64 ring is near the shared-memory limit
+ENVELOPE_SHAPES = ((17, 3, 2, 0, 37), (12, 6, 2, 4, 45), (8, 32, 32, 32, 9))
 ZMP_ROBOTS, ZMP_N, ZMP_T = 256, 300, 0.005
 
 # the shared-plan paths (phases 8-13)
@@ -629,12 +636,38 @@ def build_config5(tt, device):
                 setup_s=time.perf_counter() - t0)
 
 
+def _stagewise_held(sk, args, kw, entry, reps: int = 5, served=False):
+    """``entry`` against the plain version on ``args`` (one dtype):
+    ``((err, kernel ms), max(1, max |plain|), plain ms, bytes of the
+    inputs and outputs)``.  ``served``: the kernel runs on the lane-first
+    plan made once, as the serving path holds it; otherwise each call
+    makes it anew."""
+    import torch
+
+    ekw = dict(kw, plan_lf=sk.lane_first_plan(args[0])) if served else kw
+    got = entry(*args, **ekw)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = sk.stagewise_tick_plain(*args, **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"{entry.__name__} {args[0].dtype}: bad output")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    return ((err, _cuda_ms(lambda: entry(*args, **ekw), reps)), scale,
+            ev[0].elapsed_time(ev[1]), _nbytes(*args, *want))
+
+
 def stagewise_vs_plain(sk, cfg):
     """The tick kernel against its plain version on the served plan of
     ``cfg``, from the warm tuple a cold serving tick delivers, with the
-    serving iteration count.  Returns ``(entry, f32 err, f32 tolerance,
-    f64 err, f32 kernel ms, f32 plain ms, f64 kernel ms, f32 (bound_ms,
-    bound_by))``."""
+    serving iteration count, on the lane-first plan made once as the
+    serving path holds it.  Returns ``(entry, f32 err, f32 tolerance, f64
+    err, f32 kernel ms, f32 plain ms, f64 kernel ms, f32 (bound_ms,
+    bound_by), chain steps, f32 ms of making the lane-first plan)``."""
     import torch
 
     tick, opts = cfg["tick"], cfg["opts"]
@@ -653,26 +686,89 @@ def stagewise_vs_plain(sk, cfg):
     out = {}
     for dt in (torch.float64, torch.float32):
         args = (fp.plan.to(dt), x0.mT.contiguous().to(dt), warm_t.to(dt))
-        got = entry(*args, **kw)
-        torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        want = sk.stagewise_tick_plain(*args, **kw)
-        ev[1].record()
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
-                fail(f"{entry.__name__} {dt}: bad output")
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        scale = max(1.0, max(float(w.abs().max()) for w in want))
-        out[dt] = (err, scale, ev[0].elapsed_time(ev[1]),
-                   _cuda_ms(lambda: entry(*args, **kw), 5),
-                   _nbytes(*args, *got))
-    err32, scale32, plain_ms, ms, nbytes = out[torch.float32]
+        out[dt] = _stagewise_held(sk, args, kw, entry, served=True)
+    (err32, ms), scale32, plain_ms, nbytes = out[torch.float32]
+    plan32 = fp.plan.to(torch.float32)
+    repack_ms = _cuda_ms(lambda: sk.lane_first_plan(plan32), 5)
     bnd = bound(stagewise_flops(N, x, u, r, opts.max_iter, x0.shape[0]),
                 nbytes)
-    return (entry.__name__, err32, F32_RTOL * scale32, out[torch.float64][0],
-            ms, plain_ms, out[torch.float64][3], bnd)
+    return (entry.__name__, err32, F32_RTOL * scale32,
+            out[torch.float64][0][0], ms, plain_ms, out[torch.float64][0][1],
+            bnd, 2 * N * opts.max_iter, repack_ms)
+
+
+def random_stagewise(tt, device, N: int, x: int, u: int, r: int,
+                     lanes: int, seed: int):
+    """A random well-posed batch of stagewise problems (the recipe of the
+    reference's stagewise kernel tests: rows when ``r`` > 0, 30% of the
+    state bounds infinite), its fused plan at rho 0.3, x0 [x, B] and a
+    distinct non-zero warm tensor, all float64 on ``device``."""
+    import torch
+    from copra_tpu_torch.ops import stagewise_kernel as sk
+    from copra_tpu_torch.qp.riccati import StagewiseQP
+
+    rng = np.random.default_rng(seed)
+    lead = (lanes,)
+    Qm = 0.3 * rng.normal(size=lead + (N + 1, x, x))
+    Rm = 0.3 * rng.normal(size=lead + (N, u, u))
+    xlb = np.full(lead + (N + 1, x), -0.8)
+    mask = rng.uniform(size=xlb.shape) < 0.3
+    f = dict(
+        A=0.95 * np.eye(x) + 0.08 * rng.normal(size=lead + (N, x, x))
+        / np.sqrt(x / 3),
+        B=0.5 * rng.normal(size=lead + (N, x, u)),
+        d=0.01 * rng.normal(size=lead + (N, x)),
+        Qx=np.einsum("...kij,...kil->...kjl", Qm, Qm) + 0.1 * np.eye(x),
+        qx=0.2 * rng.normal(size=lead + (N + 1, x)),
+        Ru=np.einsum("...kij,...kil->...kjl", Rm, Rm) + 0.5 * np.eye(u),
+        ru=0.2 * rng.normal(size=lead + (N, u)),
+        x0=0.3 * rng.normal(size=lead + (x,)),
+        xlb=np.where(mask, -np.inf, xlb), xub=np.where(mask, np.inf, -xlb),
+        ulb=np.full(lead + (N, u), -1.5), uub=np.full(lead + (N, u), 1.5))
+    if r:
+        mid = 0.1 * rng.normal(size=lead + (N, r))
+        f.update(Cx=rng.normal(size=lead + (N, r, x)),
+                 Cu=rng.normal(size=lead + (N, r, u)), clo=mid - 0.7,
+                 chi=mid + 0.7)
+    sqp = StagewiseQP(**{k: torch.tensor(v, device=device)
+                         for k, v in f.items()})
+    fp = sk.build_fused_plan(sqp, tt.SolverOptions(rho=0.3))
+    warm = torch.tensor(0.2 * rng.normal(
+        size=(N + 1, sk._Layout(x, u, r).W, lanes)), device=device)
+    return fp.plan, sqp.x0.mT.contiguous(), warm
+
+
+def shapes_vs_plain(tt, sk, device):
+    """The tick kernel (through the entry point of each shape's mode)
+    against the plain version on ``ENVELOPE_SHAPES``, 20 iterations,
+    float64 within F64_TOL and float32 within F32_RTOL x max(1, max
+    |plain|); fails on a disagreement."""
+    import torch
+
+    kw = dict(n_iter=20, sigma=1e-6, alpha=1.6)
+    for N, x, u, r, lanes in ENVELOPE_SHAPES:
+        plan, x0, warm = random_stagewise(tt, device, N, x, u, r, lanes,
+                                          seed=N + x + r)
+        entry = (sk.fused_stagewise_tick
+                 if sk.fused_mode(N, x, u, r, plan.dtype) == "resident"
+                 else sk.fused_stagewise_tick_streamed)
+        line = []
+        for dt, tol in ((torch.float64, None), (torch.float32, F32_RTOL)):
+            args = (plan.to(dt), x0.to(dt), warm.to(dt))
+            (err, ms), scale, plain_ms, _ = _stagewise_held(
+                sk, args, dict(kw, N=N, x=x, u=u, r=r), entry, reps=3)
+            bound_ = F64_TOL if tol is None else tol * scale
+            line.append(f"{str(dt)[6:]} max_abs_err {err:.3e} (tol "
+                        f"{bound_:.3e}), kernel {ms:.4f} ms, plain "
+                        f"{plain_ms:.1f} ms")
+            if not err <= bound_:
+                fail(f"tick kernel at {(N, x, u, r, lanes)} {dt}: "
+                     f"{err:.3e} > {bound_:.3e}")
+        cfg = sk.ring_config(N, x, u, r, 8)
+        print(f"kernel {entry.__name__} (N, x, u, r, lanes) = "
+              f"{(N, x, u, r, lanes)}, f64 ring of {cfg[4]} x {cfg[8]} "
+              f"stage tiles of {(sum(cfg[:3]) * 8) / 1e3:.1f} KB: "
+              + "; ".join(line))
 
 
 def serve_stagewise(sk, cfg):
@@ -1754,6 +1850,13 @@ def main() -> int:
     print(f"device: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
     print(smi[0] if smi else "nvidia-smi: no output")
+    # the SM clock the cycles-per-step figures of phase 5 are counted at
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    sm_hz = float(clk[0]) * 1e6 if clk and clk[0].strip().isdigit() \
+        else 1.98e9
 
     # phase 2: build every kernel from the checkout, in parallel
     t0 = time.perf_counter()
@@ -1828,16 +1931,20 @@ def main() -> int:
     # phase 5: the stagewise kernel against its plain version
     probe = {}
     for cfg in configs:
-        (entry, e32, b32, e64, ms, plain_ms, ms64,
-         bnd) = stagewise_vs_plain(sk, cfg)
+        (entry, e32, b32, e64, ms, plain_ms, ms64, bnd, chain,
+         repack_ms) = stagewise_vs_plain(sk, cfg)
         probe[entry] = (e32, ms, plain_ms, bnd)
         print(f"kernel {entry} ({cfg['name']} plan, {cfg['opts'].max_iter} "
               f"iterations): float64 max_abs_err {e64:.3e} (tol {F64_TOL}),"
               f" float32 max_abs_err {e32:.3e} (tol {b32:.3e}); kernel "
               f"{ms:.4f} ms (float64 {ms64:.4f} ms), plain {plain_ms:.1f} ms,"
-              f" bound {bnd[0]:.4f} ms ({bnd[1]})")
+              f" bound {bnd[0]:.4f} ms ({bnd[1]}); chain {chain} dependent "
+              f"stage steps, {ms * 1e-3 * sm_hz / chain:.0f} cycles per "
+              f"step at {sm_hz / 1e6:.0f} MHz; the lane-first plan, made "
+              f"once per plan, {repack_ms:.4f} ms")
         if not (e64 <= F64_TOL and e32 <= b32):
             fail(f"{entry} disagrees with the plain version")
+    shapes_vs_plain(tt, sk, dev)
 
     # phases 6 and 7: the served stagewise paths
     for cfg in configs:

@@ -6,15 +6,17 @@ Port of ``copra_tpu/ops/stagewise_kernel.py``.  Two facts make a fused
 tick possible: the ridged stage Hessians are iteration-invariant, so the
 Riccati gains are computed once per plan (:func:`precompute_lqr_gains`)
 and each ADMM iteration runs only the linear backward and forward sweeps;
-and the whole fixed-count loop runs in one kernel that reads each stage's
-plan rows from device memory and keeps the sweep state in registers.
+and the whole fixed-count loop runs in one kernel launch that streams each
+stage's plan rows into shared memory ahead of its sweep step.
 
 :func:`fused_stagewise_tick` and :func:`fused_stagewise_tick_streamed`
 are the counterparts of the reference's resident and streamed Pallas
-entry points (``stagewise_kernel.py:418`` and ``:791``).  Both are served
-by one kernel, ``copra_tpu_torch/csrc/stagewise_tick.cu``, on one packed
-layout with the lane axis last: ``plan [N+1, C, B]``, ``warm [N+1, W,
-B]``, ``work [N+1, Kw, B]`` and ``x0 [x, B]`` (:class:`_Layout`).  The
+entry points (``stagewise_kernel.py:418`` and ``:791``).  Both take one
+packed layout with the lane axis last: ``plan [N+1, C, B]``, ``warm [N+1,
+W, B]``, ``work [N+1, Kw, B]`` and ``x0 [x, B]`` (:class:`_Layout`), and
+both are served by one kernel, ``copra_tpu_torch/csrc/stagewise_tick.cu``
+(a block per lane, on lane-first copies that :func:`_launch` makes and
+undoes), for every shape inside :func:`check_fused_envelope`.  The
 reference's resident/streamed split was a VMEM budget; here
 :func:`fused_mode` keeps only its component rule to choose the entry
 point.  Dropped as Mosaic layout machinery: ``_pad8``, ``LANES`` and the
@@ -41,10 +43,9 @@ from .build import load_library
 
 Tensor = torch.Tensor
 
-# (x, u, r) shapes the CUDA kernel is instantiated for (csrc/
-# stagewise_tick.cu): config 5 (ZMP preview), the resident test shape and
-# config 6 (quadruped); float32 and float64 each.
-KERNEL_SHAPES = ((3, 1, 2), (3, 2, 2), (12, 12, 12))
+MAX_WIDTH = 128          # x + u + r, the reference's streamed-mode limit
+SMEM_LIMIT = 232448      # shared memory one H100 block may use (227 KB)
+MAX_STAGES = 8           # stage tiles in the kernel's ring, at most
 
 _POLISH = ("options.polish_iters > 0 needs the df32 -> f64 polish, which "
            "is not yet ported (ROADMAP item 8)")
@@ -284,6 +285,15 @@ def stagewise_tick_plain(plan: Tensor, x0: Tensor, warm: Tensor, *,
 
 _lib = None
 
+# the offsets csrc/stagewise_tick.cu's make_layout reports, in its order
+_LAY_FIELDS = ("A", "B", "d", "K", "nF", "qb", "rb", "rhox", "rhou", "xlb",
+               "xub", "ulb", "uub", "Cx", "Cu", "slo", "shi", "rhos", "C",
+               "zX", "yX", "zU", "yU", "zS", "yS", "W", "X", "U", "kk", "Kw")
+# (N, x, u, r) whose layout and launch plan _load checks against the C++
+_CHECKED = ((300, 3, 1, 2), (12, 3, 2, 2), (12, 3, 2, 0), (40, 6, 2, 4),
+            (40, 12, 12, 12), (8, 32, 32, 32), (10, 64, 64, 0),
+            (3000, 100, 20, 8))
+
 
 def _load() -> ctypes.CDLL:
     global _lib
@@ -292,27 +302,102 @@ def _load() -> ctypes.CDLL:
     lib = load_library("stagewise_tick")
     p, i, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.copra_stagewise_tick.restype = i
-    lib.copra_stagewise_tick.argtypes = [p] * 4 + [i] * 7 + [dbl] * 2 + [p]
-    lib.copra_stagewise_layout.restype = i
+    lib.copra_stagewise_tick.argtypes = [p] * 3 + [i] * 7 + [dbl] * 2 + [p]
+    lib.copra_stagewise_layout.restype = None
     lib.copra_stagewise_layout.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.copra_stagewise_ring_config.restype = None
+    lib.copra_stagewise_ring_config.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.copra_stagewise_error_string.restype = ctypes.c_char_p
     lib.copra_stagewise_error_string.argtypes = [i]
-    for shape in KERNEL_SHAPES:     # the C++ layout must be this module's
-        out = (ctypes.c_int * 3)()
-        lo = _Layout(*shape)
-        if lib.copra_stagewise_layout(*shape, out) != 0 or \
-                tuple(out) != (lo.C, lo.W, lo.Kw):
+    for N, x, u, r in _CHECKED:     # the C++ layout and plan are this module's
+        out = (ctypes.c_int * len(_LAY_FIELDS))()
+        lib.copra_stagewise_layout(x, u, r, out)
+        lo = _Layout(x, u, r)
+        if tuple(out) != tuple(getattr(lo, f) for f in _LAY_FIELDS):
             raise RuntimeError(f"csrc/stagewise_tick.cu disagrees with "
-                               f"_Layout{shape}: {tuple(out)}")
+                               f"_Layout{(x, u, r)}: {tuple(out)}")
+        for itemsize in (4, 8):
+            cfg = (ctypes.c_int * 9)()
+            lib.copra_stagewise_ring_config(N, x, u, r, int(itemsize == 8),
+                                            cfg)
+            want = ring_config(N, x, u, r, itemsize)
+            if tuple(cfg) != want:
+                raise RuntimeError(
+                    f"csrc/stagewise_tick.cu's launch plan for "
+                    f"{(N, x, u, r)} x {itemsize} B is {tuple(cfg)}, not "
+                    f"{want}")
     _lib = lib
     return lib
 
 
-def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha):
-    if (x, u, r) not in KERNEL_SHAPES:
-        raise ValueError(f"stagewise tick kernel: (x, u, r) = {(x, u, r)} "
-                         f"is not instantiated; instantiated shapes "
-                         f"{KERNEL_SHAPES}")
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def ring_config(N: int, x: int, u: int, r: int, itemsize: int
+                ) -> Tuple[int, int, int, int, int, int, int, int, int]:
+    """The kernel's launch plan for a problem (mirrored by
+    ``ring_config`` in ``csrc/stagewise_tick.cu``): ``(Cp, Wp, Kwp,
+    threads, stages, kk_resident, bytes, unroll, group)``.  Rows are
+    padded to 16 bytes; the state coordinates and the control and row
+    coordinates get warps of their own; up to ``MAX_STAGES`` stage tiles
+    fit beside the block's vectors and, where they fit, every stage's
+    ``kk``, as ``stages`` ring slots of ``group`` tiles each (4 tiles a
+    slot from 8 tiles on, 2 from 4, else 1; ``stages`` is 0 when not even
+    two tiles fit in ``SMEM_LIMIT``); the loops over x, u and r unroll to
+    4, 16 or 32, the smallest bound that covers the shape (0: rolled,
+    above 32)."""
+    lo = _Layout(x, u, r)
+    per16 = 16 // itemsize
+    Cp, Wp, Kwp = (_round_up(n, per16) for n in (lo.C, lo.W, lo.Kw))
+    threads = _round_up(x, 32) + _round_up(max(u, r), 32)
+    tile = (Cp + Wp + Kwp) * itemsize
+    vec = _round_up((2 * x + 2 * u + r) * itemsize, 16)
+    kk = N * u * itemsize
+    tiles = (SMEM_LIMIT - vec - kk) // tile
+    kk_resident = tiles >= 2
+    if not kk_resident:
+        tiles = (SMEM_LIMIT - vec) // tile
+    tiles = min(tiles, MAX_STAGES)
+    group = 4 if tiles >= 8 else 2 if tiles >= 4 else 1
+    slots = tiles // group
+    nbytes = slots * group * tile + vec + (kk if kk_resident else 0)
+    w = max(x, u, r)
+    unroll = next((m for m in (4, 16, 32) if w <= m), 0)
+    return (Cp, Wp, Kwp, threads, slots if tiles >= 2 else 0,
+            int(kk_resident), nbytes, unroll, group)
+
+
+def _lane_first(t: Tensor, rows_p: int) -> Tensor:
+    """Lane-last ``[N+1, rows, B]`` -> lane-first ``[B, N+1, rows_p]``,
+    rows zero-padded to ``rows_p``: the kernel's layout, where a lane's
+    stage tile is one contiguous run."""
+    S, rows, nb = t.shape
+    out = t.new_zeros((nb, S, rows_p))
+    out[:, :, :rows] = t.permute(2, 0, 1)
+    return out
+
+
+def _lane_last(t: Tensor, rows: int) -> Tensor:
+    """Inverse of :func:`_lane_first`: ``[B, N+1, rows_p]`` ->
+    ``[N+1, rows, B]``."""
+    return t[:, :, :rows].permute(1, 2, 0).contiguous()
+
+
+def lane_first_plan(plan: Tensor) -> Tensor:
+    """The kernel's copy of ``plan [N+1, C, B]``: ``[B, N+1, Cp]``, rows
+    padded to 16 bytes.  A caller that ticks one plan many times makes it
+    once (:class:`FusedStagewisePlan` holds it) and passes it as
+    ``plan_lf``; otherwise every launch makes it anew."""
+    return _lane_first(plan, _round_up(plan.shape[1],
+                                       16 // plan.element_size()))
+
+
+def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
+            plan_lf=None):
+    """Check the lane-last tensors, make the kernel's lane-first copies
+    (``plan_lf`` if given, and the state: warm | work per stage), launch
+    it and return ``(warm', work)`` lane-last again."""
     if n_iter < 0 or N < 1:
         raise ValueError(f"n_iter must be >= 0 and N >= 1, got {n_iter}, "
                          f"{N}")
@@ -321,6 +406,7 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha):
     dev, dt = plan.device, plan.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"plan must be float32 or float64, got {dt}")
+    check_fused_envelope(N, x, u, r, dt)
     for name, t, shape in (("plan", plan, (N + 1, lo.C, nb)),
                            ("x0", x0, (x, nb)),
                            ("warm", warm, (N + 1, lo.W, nb))):
@@ -333,25 +419,33 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    Cp, Wp, Kwp = ring_config(N, x, u, r, plan.element_size())[:3]
+    if plan_lf is None:
+        plan_lf = lane_first_plan(plan)
+    elif (plan_lf.device != dev or plan_lf.dtype != dt
+          or tuple(plan_lf.shape) != (nb, N + 1, Cp)
+          or not plan_lf.is_contiguous()):
+        raise ValueError(f"plan_lf must be lane_first_plan(plan), a "
+                         f"contiguous {dt} [{nb}, {N + 1}, {Cp}] on {dev}")
     lib = _load()
-    warm_out = warm.clone()
-    work = torch.empty((N + 1, lo.Kw, nb), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        state = torch.empty((nb, N + 1, Wp + Kwp), dtype=dt, device=dev)
+        state[:, :, :lo.W] = warm.permute(2, 0, 1)
         rc = lib.copra_stagewise_tick(
-            plan.data_ptr(), x0.data_ptr(), warm_out.data_ptr(),
-            work.data_ptr(), nb, N, x, u, r, int(n_iter),
-            int(dt == torch.float64), float(sigma), float(alpha), stream)
+            plan_lf.data_ptr(), x0.data_ptr(), state.data_ptr(), nb, N, x, u,
+            r, int(n_iter), int(dt == torch.float64), float(sigma),
+            float(alpha), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"stagewise tick kernel launch failed: CUDA error {rc} "
             f"({lib.copra_stagewise_error_string(rc).decode()})")
-    return warm_out, work
+    return _lane_last(state, lo.W), _lane_last(state[:, :, Wp:], lo.Kw)
 
 
 def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
                          n_iter: int, N: int, x: int, u: int, r: int,
-                         sigma: float, alpha: float
+                         sigma: float, alpha: float,
+                         plan_lf: Optional[Tensor] = None
                          ) -> Tuple[Tensor, Tensor]:
     """Run ``n_iter`` stagewise-ADMM iterations in one kernel (the resident
     entry point: small per-stage dimensions, the N=300 ZMP class).
@@ -360,19 +454,21 @@ def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
     (:class:`_Layout`, lane axis last).  Returns ``(warm', work)``;
     ``work [N+1, Kw, B]`` carries the final LQR iterates ``X``/``U``.
     CPU tensors run :func:`stagewise_tick_plain`; CUDA tensors launch
-    ``csrc/stagewise_tick.cu``.
+    ``csrc/stagewise_tick.cu`` (see :func:`_launch`), on ``plan_lf``
+    (:func:`lane_first_plan`) where the caller holds one.
     """
     kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha)
     if plan.device.type == "cpu":
         return stagewise_tick_plain(plan, x0, warm, **kw)
-    out = _launch(plan, x0, warm, **kw)
+    out = _launch(plan, x0, warm, **kw, plan_lf=plan_lf)
     fused_stagewise_tick.launches += 1
     return out
 
 
 def fused_stagewise_tick_streamed(plan: Tensor, x0: Tensor, warm: Tensor,
                                   *, n_iter: int, N: int, x: int, u: int,
-                                  r: int, sigma: float, alpha: float
+                                  r: int, sigma: float, alpha: float,
+                                  plan_lf: Optional[Tensor] = None
                                   ) -> Tuple[Tensor, Tensor]:
     """The streamed entry point (robot-scale per-stage dimensions, the
     x = u = r = 12 quadruped class): the same kernel and arguments as
@@ -380,7 +476,7 @@ def fused_stagewise_tick_streamed(plan: Tensor, x0: Tensor, warm: Tensor,
     kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha)
     if plan.device.type == "cpu":
         return stagewise_tick_plain(plan, x0, warm, **kw)
-    out = _launch(plan, x0, warm, **kw)
+    out = _launch(plan, x0, warm, **kw, plan_lf=plan_lf)
     fused_stagewise_tick_streamed.launches += 1
     return out
 
@@ -409,6 +505,7 @@ class FusedStagewisePlan:
     rows: "object"            # normalized rows (riccati._Rows) or None
     rho_x: Tensor             # [B, N+1, x]
     rho_u: Tensor             # [B, N, u]
+    plan_lf: Optional[Tensor] = None   # lane_first_plan(plan) on CUDA
 
 
 def fused_mode(N: int, x: int, u: int, r: int, dtype) -> str:
@@ -420,16 +517,32 @@ def fused_mode(N: int, x: int, u: int, r: int, dtype) -> str:
 
 
 def check_fused_envelope(N: int, x: int, u: int, r: int, dtype) -> None:
-    """Raise ``ValueError`` unless the CUDA kernel can serve the problem:
-    an instantiated ``(x, u, r)`` and float32 or float64 data."""
-    if (x, u, r) not in KERNEL_SHAPES or dtype not in (torch.float32,
-                                                        torch.float64):
+    """Raise ``ValueError`` with guidance unless the CUDA kernel can serve
+    the problem: float32 or float64 data, ``x, u >= 1``, ``x + u + r <=
+    128`` (the reference's streamed-mode limit) and a ring of at least two
+    stage tiles beside the block's vectors within the 227 KB of shared
+    memory one block may use (:func:`ring_config`)."""
+    if dtype not in (torch.float32, torch.float64):
         raise ValueError(
-            f"fused stagewise kernel envelope: (x, u, r) = {(x, u, r)} in "
-            f"{dtype}; the CUDA kernel is instantiated for (x, u, r) in "
-            f"{KERNEL_SHAPES}, float32 and float64.  Use "
-            f"make_stagewise_step(backend='xla'), or add the shape to "
-            f"csrc/stagewise_tick.cu and KERNEL_SHAPES.")
+            f"fused stagewise kernel envelope: {dtype} data; the CUDA "
+            f"kernel takes float32 and float64.  Use "
+            f"make_stagewise_step(backend='xla').")
+    itemsize = 8 if dtype == torch.float64 else 4
+    if min(x, u) < 1 or r < 0 or x + u + r > MAX_WIDTH:
+        raise ValueError(
+            f"fused stagewise kernel envelope exceeded for N={N}, x={x}, "
+            f"u={u}, r={r}: the kernel needs x, u >= 1 and x+u+r <= "
+            f"{MAX_WIDTH}.  Use make_stagewise_step(backend='xla'), "
+            f"optionally with fewer rows per stage.")
+    cfg = ring_config(N, x, u, r, itemsize)
+    if cfg[4] < 2:
+        tile = sum(cfg[:3]) * itemsize
+        raise ValueError(
+            f"fused stagewise kernel envelope exceeded for N={N}, x={x}, "
+            f"u={u}, r={r} in {dtype}: a stage tile is {tile / 1e3:.1f} KB "
+            f"and the kernel's ring needs two of them in "
+            f"{SMEM_LIMIT / 1024:.0f} KB of shared memory.  Use "
+            f"make_stagewise_step(backend='xla'), or float32 data.")
 
 
 @highest_precision
@@ -497,10 +610,11 @@ def build_fused_plan(sqp, options) -> FusedStagewisePlan:
         put(lo.slo, rows.slo.clamp_min(big_neg))
         put(lo.shi, rows.shi.clamp_max(big_pos))
         put(lo.rhos, rows.rho_s)
+    plan = cols.permute(1, 2, 0).contiguous()
     return FusedStagewisePlan(
-        plan=cols.permute(1, 2, 0).contiguous(), mode=fused_mode(
-            N, x, u, r, sqp.A.dtype), sqp=sqp, gains_raw=gains_raw,
-        rows=rows, rho_x=rho_x, rho_u=rho_u)
+        plan=plan, mode=fused_mode(N, x, u, r, sqp.A.dtype), sqp=sqp,
+        gains_raw=gains_raw, rows=rows, rho_x=rho_x, rho_u=rho_u,
+        plan_lf=lane_first_plan(plan) if plan.is_cuda else None)
 
 
 def _pack_warm(fp: FusedStagewisePlan, zX, zU, yX, yU, zS, yS) -> Tensor:
@@ -581,7 +695,7 @@ def solve_stagewise_fused(sqp, options, warm_start=None,
     def run(warm_t, n_iter):
         return entry(fp.plan, x0, warm_t, n_iter=n_iter, N=N, x=x, u=u,
                      r=r, sigma=float(options.sigma),
-                     alpha=float(options.alpha))
+                     alpha=float(options.alpha), plan_lf=fp.plan_lf)
 
     def take(t, off, c, stages=N + 1):
         return t[:stages, off:off + c].permute(2, 0, 1)

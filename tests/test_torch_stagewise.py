@@ -405,8 +405,9 @@ def test_wrappers_on_cpu_take_the_plain_version_and_options_raise():
     assert sk.fused_mode(300, 3, 1, 2, torch.float32) == "resident"
     assert sk.fused_mode(40, 12, 12, 12, torch.float32) == "streamed"
     sk.check_fused_envelope(300, 3, 1, 2, torch.float32)
+    sk.check_fused_envelope(10, 4, 1, 2, torch.float32)   # any (x, u, r)
     with pytest.raises(ValueError, match="envelope"):
-        sk.check_fused_envelope(10, 4, 1, 2, torch.float32)
+        sk.check_fused_envelope(10, 100, 20, 9, torch.float32)
     with pytest.raises(NotImplementedError, match="item 8"):
         sk.build_fused_plan(_port(f), opts.replace(polish_iters=2))
     with pytest.raises(NotImplementedError, match="item 11"):

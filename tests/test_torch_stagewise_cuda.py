@@ -11,21 +11,31 @@ import pytest
 import torch
 
 from copra_tpu_torch.ops import stagewise_kernel as sk
-from copra_tpu_torch.qp.riccati import StagewiseQP
+from copra_tpu_torch.qp.riccati import StagewiseQP, make_stagewise_step
 from copra_tpu_torch.qp.types import SolverOptions
 
 
 def _problem(N, x, u, r, lanes, seed):
-    """A random well-posed batch of stagewise problems with rows and some
-    unbounded coordinates, its fused plan, x0 [x, B] and a distinct
-    non-zero warm tensor."""
+    """A random well-posed batch of stagewise problems with rows (none
+    when ``r`` is 0) and some unbounded coordinates, its fused plan, x0
+    [x, B] and a distinct non-zero warm tensor."""
+    sqp = StagewiseQP(**{k: torch.tensor(v, device="cuda") for k, v in
+                         _fields(N, x, u, r, lanes, seed).items()})
+    rng = np.random.default_rng(seed + 1)
+    fp = sk.build_fused_plan(sqp, SolverOptions(rho=0.3))
+    lo = sk._Layout(x, u, r)
+    warm = torch.tensor(0.2 * rng.normal(size=(N + 1, lo.W, lanes)),
+                        device="cuda")
+    return fp, sqp.x0.mT.contiguous(), warm
+
+
+def _fields(N, x, u, r, lanes, seed):
     rng = np.random.default_rng(seed)
     lead = (lanes,)
     Qm = 0.3 * rng.normal(size=lead + (N + 1, x, x))
     Rm = 0.3 * rng.normal(size=lead + (N, u, u))
     xlb = np.full(lead + (N + 1, x), -0.8)
     mask = rng.uniform(size=xlb.shape) < 0.3
-    mid = 0.1 * rng.normal(size=lead + (N, r))
     f = dict(
         A=0.95 * np.eye(x) + 0.08 * rng.normal(size=lead + (N, x, x))
         / np.sqrt(x / 3),
@@ -37,16 +47,13 @@ def _problem(N, x, u, r, lanes, seed):
         ru=0.2 * rng.normal(size=lead + (N, u)),
         x0=0.3 * rng.normal(size=lead + (x,)),
         xlb=np.where(mask, -np.inf, xlb), xub=np.where(mask, np.inf, -xlb),
-        ulb=np.full(lead + (N, u), -1.5), uub=np.full(lead + (N, u), 1.5),
-        Cx=rng.normal(size=lead + (N, r, x)),
-        Cu=rng.normal(size=lead + (N, r, u)), clo=mid - 0.7, chi=mid + 0.7)
-    sqp = StagewiseQP(**{k: torch.tensor(v, device="cuda")
-                         for k, v in f.items()})
-    fp = sk.build_fused_plan(sqp, SolverOptions(rho=0.3))
-    lo = sk._Layout(x, u, r)
-    warm = torch.tensor(0.2 * rng.normal(size=(N + 1, lo.W, lanes)),
-                        device="cuda")
-    return fp, sqp.x0.mT.contiguous(), warm
+        ulb=np.full(lead + (N, u), -1.5), uub=np.full(lead + (N, u), 1.5))
+    if r:
+        mid = 0.1 * rng.normal(size=lead + (N, r))
+        f.update(Cx=rng.normal(size=lead + (N, r, x)),
+                 Cu=rng.normal(size=lead + (N, r, u)), clo=mid - 0.7,
+                 chi=mid + 0.7)
+    return f
 
 
 @pytest.fixture
@@ -59,44 +66,105 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("shape", [(300, 3, 1, 2, 70), (12, 3, 2, 2, 33),
-                                   (40, 12, 12, 12, 40)],
-                         ids=["zmp", "resident", "quadruped"])
+                                   (40, 12, 12, 12, 40), (17, 3, 2, 0, 37),
+                                   (12, 6, 2, 4, 45), (8, 32, 32, 32, 9)],
+                         ids=["zmp", "resident", "quadruped", "box_only",
+                              "resident_class", "wide"])
 def test_cuda_tick_matches_plain_version(cuda, shape, dtype, tol):
     """Both entry points within ``tol`` x max(1, max |plain|) of the plain
     version after 20 iterations from a distinct non-zero warm tensor
     (float64 at 1e-9, the reference's fused-vs-XLA tolerance; float32 at
-    1e-4); one launch counted per call."""
+    1e-4), lane counts that are not multiples of 32 among them, with the
+    lane-first plan made by the call and made once; one launch counted per
+    call."""
     N, x, u, r, lanes = shape
     fp, x0, warm = _problem(N, x, u, r, lanes, seed=N + x)
     args = (fp.plan.to(dtype), x0.to(dtype), warm.to(dtype))
     kw = dict(n_iter=20, N=N, x=x, u=u, r=r, sigma=1e-6, alpha=1.6)
     want = sk.stagewise_tick_plain(*args, **kw)
     bound = tol * max(1.0, max(float(w.abs().max()) for w in want))
-    for entry in (sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed):
-        before = entry.launches
-        got = entry(*args, **kw)
-        assert entry.launches == before + 1
+
+    def held(got, what):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert g.dtype == dtype and g.shape == w.shape
-            assert float((g - w).abs().max()) <= bound, entry.__name__
+            assert float((g - w).abs().max()) <= bound, what
+
+    for entry, lf in ((sk.fused_stagewise_tick, None),
+                      (sk.fused_stagewise_tick_streamed,
+                       sk.lane_first_plan(args[0]))):
+        before = entry.launches
+        got = entry(*args, **kw, plan_lf=lf)
+        assert entry.launches == before + 1
+        held(got, entry.__name__)
     # n_iter = 0 delivers the warm state and its proximal centre as is
-    w0, k0 = sk.fused_stagewise_tick(*args, **dict(kw, n_iter=0))
     p0, q0 = sk.stagewise_tick_plain(*args, **dict(kw, n_iter=0))
-    assert torch.equal(w0, p0) and torch.equal(k0, q0)
+    for entry in (sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed):
+        w0, k0 = entry(*args, **dict(kw, n_iter=0))
+        assert torch.equal(w0, p0) and torch.equal(k0, q0), entry.__name__
+
+
+@pytest.mark.cuda
+def test_cuda_tick_streams_kk_when_it_does_not_fit(cuda):
+    """A long wide horizon whose kk rows do not fit beside the ring
+    (kk_resident 0: the forward sweep reads kk from the streamed tiles),
+    float64 within 1e-9 of the plain version after 2 iterations."""
+    N, x, u, r, lanes = 160, 50, 50, 0, 3
+    assert sk.ring_config(N, x, u, r, 8)[5] == 0
+    fp, x0, warm = _problem(N, x, u, r, lanes, seed=5)
+    kw = dict(n_iter=2, N=N, x=x, u=u, r=r, sigma=1e-6, alpha=1.6)
+    want = sk.stagewise_tick_plain(fp.plan, x0, warm, **kw)
+    got = sk.fused_stagewise_tick_streamed(fp.plan, x0, warm, **kw)
+    torch.cuda.synchronize()
+    bound = 1e-9 * max(1.0, max(float(w.abs().max()) for w in want))
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= bound
 
 
 @pytest.mark.cuda
 def test_cuda_tick_raises_on_what_the_kernel_does_not_take(cuda):
     fp, x0, warm = _problem(12, 3, 2, 2, 8, seed=1)
     kw = dict(n_iter=2, N=12, x=3, u=2, r=2, sigma=1e-6, alpha=1.6)
-    with pytest.raises(ValueError, match="not instantiated"):
+    with pytest.raises(ValueError, match="envelope"):     # x + u + r > 128
         sk.fused_stagewise_tick(fp.plan, x0, warm,
-                                **dict(kw, x=2, u=3))
+                                **dict(kw, x=60, u=60, r=9))
+    with pytest.raises(ValueError, match="envelope"):     # the ring
+        sk.fused_stagewise_tick_streamed(fp.plan, x0, warm,
+                                         **dict(kw, x=64, u=64, r=0))
     with pytest.raises(TypeError):
         sk.fused_stagewise_tick(fp.plan, x0.float(), warm, **kw)
+    with pytest.raises(TypeError):
+        sk.fused_stagewise_tick(fp.plan.half(), x0, warm, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         sk.fused_stagewise_tick(fp.plan, x0, warm.transpose(0, 1)
                                 .contiguous().transpose(0, 1), **kw)
     with pytest.raises(ValueError, match="shape"):
         sk.fused_stagewise_tick(fp.plan, x0, warm[:-1], **kw)
+    with pytest.raises(ValueError, match="lane_first_plan"):
+        sk.fused_stagewise_tick(fp.plan, x0, warm, **kw,
+                                plan_lf=sk.lane_first_plan(fp.plan[:-1]))
+    with pytest.raises(ValueError, match="shape"):   # (2, 3, 2) is served,
+        sk.fused_stagewise_tick(fp.plan, x0, warm,   # but on a plan of its
+                                **dict(kw, x=2, u=3))    # own
+
+
+@pytest.mark.cuda
+def test_cuda_fused_step_serves_box_only_shape_like_xla(cuda):
+    """make_stagewise_step(backend='fused') on a (3, 2, 0) fleet on the
+    card against backend='xla' in float64: a cold and a
+    warm tick within 1e-9."""
+    f = _fields(12, 3, 2, 0, 5, seed=80)
+    sqp = StagewiseQP(**{k: torch.tensor(v, device="cuda")
+                         for k, v in f.items()})
+    opts = SolverOptions(max_iter=15, early_exit=False)
+    ticks = [make_stagewise_step(sqp, opts, backend=b)
+             for b in ("fused", "xla")]
+    assert [t.backend for t in ticks] == ["fused", "xla"]
+    before = sk.fused_stagewise_tick.launches
+    warm = [None, None]
+    for x0 in (sqp.x0, sqp.x0 + 0.05):
+        outs = [t(x0, w) for t, w in zip(ticks, warm)]
+        for g, w in zip(outs[0][:2], outs[1][:2]):
+            assert float((g - w).abs().max()) <= 1e-9
+        warm = [o[3] for o in outs]
+    assert sk.fused_stagewise_tick.launches > before
