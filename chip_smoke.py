@@ -41,11 +41,21 @@ Phases, one line or more each:
    distinct non-zero c, x0, y0, z0: refine = 0 at the serving rho and
    refine = 1 at rho = 1.0 (at the serving rho f32 refinement parts two
    summation orders by cond(K) eps, see phase 3), within 2e-4 x max(1, max
-   |plain|); kernel, plain and bound times;
+   |plain|); kernel (a CUDA-graph replay, so no host dispatch; the eager
+   calls' time beside it), plain and bound times, the body each case ran
+   and its cycles per iteration at the SM's maximum clock; a yardstick at
+   n = 256 (the same 31 products through ``torch.mm``, TF32 off: no single
+   call computes the kernel's function, so it is not ``library_ms``); the
+   two bodies timed against each other (graph replays) at n = 10, 16, 24
+   and 32 (300 iterations, B = 4096: the crossover); the wide envelope
+   held at n = 600 and 1024 (B = 64);
 9. the shared general-ADMM kernel against its plain version on config 2's
    operators (B = 4096, 400 iterations, refine = 1) at the serving rho
    and at rho = 1.0, with distinct non-zero e0, y0, z0, the same
-   tolerance and fields, and each one's distance from the f64 iteration;
+   tolerance and fields, each one's distance from the f64 iteration, and
+   its f64-pipe bound beside the f32 bound; both bodies (group, wide)
+   forced on the serving call and timed; the wide envelope held at
+   (n, m) = (100, 400) and (256, 1024) (B = 64);
 10. ``bench_all.py``'s config 1 (LTI double integrator, N = 10, B = 4096,
     +-2 control bounds, accurate tick, 300 iterations x 3 rounds, rho from
     ``auto_rho``) served on its shared plan: 2 warm-up and 5 timed ticks,
@@ -165,6 +175,11 @@ C1_N, C1_ITERS, C1_ROUNDS = 10, 300, 3
 ROOF_N, ROOF_ITERS, ROOF_ROUNDS, ROOF_TICKS = 256, 30, 2, 20
 C2_N, C2_ITERS = 10, 400
 SHORT_TICKS = 5
+# the shared kernels beyond the served shapes: the box kernel's two bodies
+# timed against each other (B = 4096, 300 iterations), and the wide
+# envelope of both kernels at B = 64
+CROSSOVER_N, CROSSOVER_ITERS = (10, 16, 24, 32), 300
+WIDE_B, BOX_WIDE_N, GENERAL_WIDE = 64, (600, 1024), ((100, 400), (256, 1024))
 # one H100 SXM (NVIDIA's data sheet): f32 and f64 outside the tensor cores,
 # HBM3
 F32_PEAK, F64_PEAK, HBM_RATE = 67e12, 34e12, 3.35e12
@@ -293,6 +308,30 @@ def _cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device ms of one ``fn()`` without its host dispatch: ``reps`` calls
+    captured in one CUDA graph, the replay timed by CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / reps
+    del graph
+    return ms
 
 
 def _max_diff(a, b) -> float:
@@ -870,6 +909,15 @@ def general_work(B: int, n: int, m: int, n_iter: int, refine: int):
     return flops, nbytes
 
 
+def general_f64_bound(B: int, n: int, m: int, n_iter: int, refine: int):
+    """The f64-pipe bound of the same call: the products' multiply-adds
+    (the kernel sums them in f64) over the f64 peak, the rest over the
+    f32 peak; ms."""
+    products = n_iter * B * (4.0 * m * n + 2.0 * n * n * (1 + 2 * refine))
+    rest = n_iter * B * (14.0 * m + 5.0 * n)
+    return (products / F64_PEAK + rest / F32_PEAK) * 1e3
+
+
 def lane_general_work(B: int, n: int, m: int, n_iter: int):
     """Operations and bytes of one per-lane general-ADMM call: per lane and
     iteration w C and C x_t (2mn each), one product with Kinv (2n^2), ~14
@@ -1080,7 +1128,10 @@ def shared_box_vs_plain(ak, cfg):
     operators at the serving iteration count, from the first tick's
     correction bounds and distinct non-zero c, x0, y0, z0: refine = 0 at
     the serving rho, refine = 1 at rho = 1.0.  Returns ``{case: (err,
-    tol, ms, plain_ms, (bound_ms, bound_by))}``."""
+    tol, ms, eager_ms, plain_ms, (bound_ms, bound_by))}``: ``ms`` from a
+    CUDA-graph replay (the kernel alone), ``eager_ms`` from eager calls
+    (the wrapper's host dispatch included); the body under "body" and, at
+    n = 256, the yardstick's ms under "yardstick_ms"."""
     import torch
 
     from copra_tpu_torch.plan import _box_fast_state
@@ -1101,7 +1152,20 @@ def shared_box_vs_plain(ak, cfg):
     Kinv1, K1 = (t.to(f32).contiguous() for t in
                  _box_fast_state(plan, opts.replace(rho=1.0)))
     sc = dict(sigma=opts.sigma, alpha=opts.alpha, n_iter=opts.max_iter)
-    out = {}
+    out = {"body": _BODY[ak.box_shared_config(n)[0]]}
+    if n == ROOF_N:
+        # the same 31 [B, n] x [n, n] f32 products through torch.mm, TF32
+        # off: a yardstick for the kernel's products, never called by it
+        from copra_tpu_torch._precision import full_f32
+
+        def products():
+            with full_f32():
+                v = c
+                for _ in range(opts.max_iter + 1):
+                    v = torch.mm(v, Kinv)
+            return v
+
+        out["yardstick_ms"] = _cuda_ms(products, 10)
     for case, (Ki, Ko, rho, refine) in {
             "refine 0, serving rho": (Kinv, K, opts.rho, 0),
             "refine 1, rho 1.0": (Kinv1, K1, 1.0, 1)}.items():
@@ -1111,9 +1175,10 @@ def shared_box_vs_plain(ak, cfg):
         want = ak.admm_box_plain(*args, **kw)
         torch.cuda.synchronize()
         err, tol = held(got, want)
-        ms = _cuda_ms(lambda: ak.fused_admm_box_shared(*args, **kw), 10)
+        run = lambda: ak.fused_admm_box_shared(*args, **kw)
+        ms, eager_ms = _graph_ms(run, 20), _cuda_ms(run, 10)
         plain_ms = _cuda_ms(lambda: ak.admm_box_plain(*args, **kw), 3)
-        out[case] = (err, tol, ms, plain_ms, bound(*box_work(
+        out[case] = (err, tol, ms, eager_ms, plain_ms, bound(*box_work(
             B, n, opts.max_iter, refine, "general", per_lane=False)))
     return out
 
@@ -1161,7 +1226,129 @@ def general_vs_plain(ak, cfg):
         out[case] = (err, tol, ms, plain_ms,
                      bound(*general_work(B, n, m, o.max_iter, 1)),
                      _max_diff(got, exact), _max_diff(want, exact))
+        if case == "serving rho":
+            # every body that takes the shape, forced, on the same call
+            for body in ak.GENERAL_BODIES:
+                try:
+                    ak.general_shared_config(n, m, body)
+                except ValueError:
+                    continue
+                run = lambda: ak._launch_general_shared(*args, body=body,
+                                                        **kw)
+                b_err = _max_diff(run(), want)
+                out[f"{body} body"] = (b_err, _cuda_ms(run, 10))
     return out
+
+
+def random_box(B: int, n: int, seed: int, device):
+    """A shared box problem off the served paths: SPD operators (Q = M M'
+    / n + 0.5 I), sigma + rho = 0.2, +-0.5 bounds and distinct non-zero
+    c, x0, y0, z0 (f32 on ``device``)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    Mx = rng.normal(size=(n, n))
+    K = Mx @ Mx.T / n + (0.5 + 0.2 + 1e-6) * np.eye(n)
+    l, u = np.full((B, n), -0.5), np.full((B, n), 0.5)
+    arrays = (np.linalg.inv(K), K, 0.3 * rng.normal(size=(B, n)), l, u,
+              0.3 * rng.normal(size=(B, n)), 0.2 * rng.normal(size=(B, n)),
+              np.clip(0.3 * rng.normal(size=(B, n)), l, u))
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in arrays]
+
+
+def random_general(B: int, n: int, m: int, seed: int, device):
+    """A shared general problem off the served paths: C = [random rows; I]
+    normalised, rho per row (two rows 10x, their bounds equal), -inf lower
+    bounds on some rows, distinct non-zero e0, y0, z0."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    C = np.concatenate([rng.normal(size=(m - n, n)), np.eye(n)])
+    C /= np.linalg.norm(C, axis=1, keepdims=True)
+    rho = np.full(m, 0.3)
+    rho[:2] *= 10.0
+    Mx = rng.normal(size=(n, n))
+    K = Mx @ Mx.T / n + (1.0 + 1e-6) * np.eye(n) + (C.T * rho) @ C
+    l = -0.4 + 0.1 * rng.normal(size=(B, m))
+    u = l + 0.8
+    l[:, 2:(m - n) // 2] = -np.inf
+    u[:, :2] = l[:, :2]
+    arrays = (np.linalg.inv(K), K, C, rho, l, u,
+              0.2 * rng.normal(size=(B, n)), 0.1 * rng.normal(size=(B, m)),
+              np.clip(0.2 * rng.normal(size=(B, m)), l, u))
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in arrays]
+
+
+BOX_SC = dict(sigma=1e-6, alpha=1.6, rho=0.2)
+
+
+def box_crossover(ak, device, sm_hz):
+    """Both bodies of the shared box kernel at the widths either takes
+    (B = 4096, 300 iterations, refine 0), each held against the plain
+    version: ``{n: {body: (err, tol, ms, cycles per iteration)}}``, ms
+    from a CUDA-graph replay."""
+    import torch
+
+    out = {}
+    for n in CROSSOVER_N:
+        args = random_box(FLEET, n, n, device)
+        kw = dict(BOX_SC, n_iter=CROSSOVER_ITERS, refine=0)
+        want = ak.admm_box_plain(*args, **kw)
+        out[n] = {}
+        for body in ("small", "tile"):
+            run = lambda: ak._launch_box_shared(*args, body=body, **kw)
+            got = run()
+            torch.cuda.synchronize()
+            err, tol = held(got, want)
+            ms = _graph_ms(run, 20)
+            out[n][body] = (err, tol, ms, ms * 1e-3 * sm_hz / CROSSOVER_ITERS)
+    return out
+
+
+def box_envelope(ak, device):
+    """The shared box kernel at the wide end of its envelope (n = 600 and
+    1024, B = 64, 30 iterations, refine 0 and 1) against the plain
+    version: ``{(n, refine): (err, tol, ms, body)}``."""
+    import torch
+
+    out = {}
+    for n in BOX_WIDE_N:
+        args = random_box(WIDE_B, n, n, device)
+        for refine in (0, 1):
+            kw = dict(BOX_SC, n_iter=ITERS, refine=refine)
+            got = ak.fused_admm_box_shared(*args, **kw)
+            want = ak.admm_box_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, tol = held(got, want)
+            ms = _cuda_ms(lambda: ak.fused_admm_box_shared(*args, **kw), 3)
+            body = _BODY[ak.box_shared_config(n)[0]]
+            out[(n, refine)] = (err, tol, ms, body)
+    return out
+
+
+def general_envelope(ak, device):
+    """The shared general kernel at the wide end of its envelope ((n, m) =
+    (100, 400) and (256, 1024), B = 64, 30 iterations, refine 1) against
+    the plain version: ``{(n, m): (err, tol, ms, body)}``."""
+    import torch
+
+    out = {}
+    for n, m in GENERAL_WIDE:
+        args = random_general(WIDE_B, n, m, m, device)
+        kw = dict(n_iter=ITERS, sigma=1e-6, alpha=1.6, refine=1)
+        got = ak.fused_admm_general_shared(*args, **kw)
+        want = ak.admm_general_shared_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, tol = held(got, want)
+        ms = _cuda_ms(lambda: ak.fused_admm_general_shared(*args, **kw), 3)
+        body = ("group", "wide")[ak.general_shared_config(n, m)[0] - 1]
+        out[(n, m)] = (err, tol, ms, body)
+    return out
+
+
+_BODY = {1: "small", 2: "tile"}
 
 
 def serve_plan(tt, cfg, step=None, plan=None):
@@ -1235,7 +1422,8 @@ def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
             "bound_by": bnd[1], "library_ms": library_ms}
 
 
-def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts):
+def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts,
+                       sm_hz):
     """Phases 8-13; returns the kernel records of K2, K3 and K6, and the
     configurations by name."""
     import torch
@@ -1253,31 +1441,75 @@ def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts):
     # phase 8: the shared box kernel against its plain version
     k3 = {}
     for cfg in (c1, roof):
-        for case, (err, tol, ms, plain_ms, bnd) in shared_box_vs_plain(
-                ak, cfg).items():
+        cases = shared_box_vs_plain(ak, cfg)
+        body, yard = cases.pop("body"), cases.pop("yardstick_ms", None)
+        n_iter = cfg["opts"].max_iter
+        for case, (err, tol, ms, eager_ms, plain_ms, bnd) in cases.items():
             k3[(cfg["name"], case)] = (err, ms, plain_ms, bnd)
             print(f"kernel fused_admm_box_shared ({cfg['name']} operators, "
                   f"n = {cfg['plan'].Q.shape[-1]}, B = {FLEET}, "
-                  f"{cfg['opts'].max_iter} iterations, {case}): max_abs_err "
-                  f"{err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+                  f"{n_iter} iterations, {case}): max_abs_err "
+                  f"{err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms (CUDA-graph "
+                  f"replay; eager calls {eager_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+                  f"{body} body, {ms * 1e-3 * sm_hz / n_iter:.0f} cycles per "
+                  f"iteration at {sm_hz / 1e6:.0f} MHz")
             if not err <= tol:
                 fail(f"fused_admm_box_shared ({cfg['name']}, {case}) "
                      f"disagrees with the plain version")
+        if yard is not None:
+            print(f"yardstick (not library_ms: no single call computes the "
+                  f"kernel): {n_iter + 1} torch.mm [{FLEET}, {ROOF_N}] x "
+                  f"[{ROOF_N}, {ROOF_N}] f32, TF32 off, {yard:.4f} ms")
+    for n, bodies in box_crossover(ak, dev, sm_hz).items():
+        for body, (err, tol, ms, cyc) in bodies.items():
+            print(f"crossover fused_admm_box_shared n = {n}, B = {FLEET}, "
+                  f"{CROSSOVER_ITERS} iterations, {body} body: {ms:.4f} ms "
+                  f"(CUDA-graph replay), "
+                  f"{cyc:.0f} cycles per iteration; max_abs_err {err:.3e} "
+                  f"(tol {tol:.3e})")
+            if not err <= tol:
+                fail(f"fused_admm_box_shared ({body} body, n = {n}) "
+                     f"disagrees with the plain version")
+    for (n, refine), (err, tol, ms, body) in box_envelope(ak, dev).items():
+        print(f"envelope fused_admm_box_shared n = {n}, B = {WIDE_B}, "
+              f"{ITERS} iterations, refine {refine}, {body} body: max_abs_err "
+              f"{err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms")
+        if not err <= tol:
+            fail(f"fused_admm_box_shared (n = {n}, refine {refine}) "
+                 f"disagrees with the plain version")
 
     # phase 9: the shared general kernel against its plain version
     k6 = general_vs_plain(ak, c2)
+    n2, m2 = c2["plan"].Q.shape[-1], c2["step"].state[0].shape[0]
+    for body in ak.GENERAL_BODIES:
+        if f"{body} body" in k6:
+            b_err, b_ms = k6.pop(f"{body} body")
+            print(f"kernel fused_admm_general_shared (config 2 operators, "
+                  f"serving rho), {body} body forced: {b_ms:.4f} ms, "
+                  f"max_abs_err {b_err:.3e} against the plain version")
+            if not b_err <= k6["serving rho"][1]:
+                fail(f"fused_admm_general_shared ({body} body) disagrees "
+                     f"with the plain version")
     for case, (err, tol, ms, plain_ms, bnd, k64, p64) in k6.items():
         print(f"kernel fused_admm_general_shared (config 2 operators, n = "
-              f"{c2['plan'].Q.shape[-1]}, m = {c2['step'].state[0].shape[0]}"
-              f", B = {FLEET}, {C2_ITERS} iterations, refine 1, {case}): "
-              f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"{n2}, m = {m2}, B = {FLEET}, {C2_ITERS} iterations, refine 1, "
+              f"{case}): max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}, f32), f64-pipe bound "
+              f"{general_f64_bound(FLEET, n2, m2, C2_ITERS, 1):.4f} ms; "
               f"distance from the f64 iteration: kernel {k64:.3e}, plain "
               f"{p64:.3e}")
         if not err <= tol:
             fail(f"fused_admm_general_shared ({case}) disagrees with the "
                  f"plain version")
+    for (n, m), (err, tol, ms, body) in general_envelope(ak, dev).items():
+        print(f"envelope fused_admm_general_shared (n, m) = ({n}, {m}), B = "
+              f"{WIDE_B}, {ITERS} iterations, refine 1, {body} body: "
+              f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms")
+        if not err <= tol:
+            fail(f"fused_admm_general_shared ((n, m) = ({n}, {m})) "
+                 f"disagrees with the plain version")
 
     def report(cfg, label, kernel, n, out):
         u, sol, share, host_ms, dev_ms, err, lanes = out
@@ -1850,7 +2082,7 @@ def main() -> int:
     print(f"device: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
     print(smi[0] if smi else "nvidia-smi: no output")
-    # the SM clock the cycles-per-step figures of phase 5 are counted at
+    # the SM clock the cycles-per-step figures of phases 5 and 8 are counted at
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -1976,7 +2208,7 @@ def main() -> int:
             STAGEWISE_REPLACES[entry.__name__], n, e32, ms, plain_ms, bnd)
 
     cfgs, records = shared_plan_phases(tt, ak, dev, plan, opts, x0_dev,
-                                       reset_counts)
+                                       reset_counts, sm_hz)
     kernels.update(records)
     k2_launches, records = general_solver_phases(
         tt, ak, ck, dev, plan, opts, x0_dev, cfgs["config 1"], reset_counts)

@@ -14,14 +14,17 @@ points:
   memory once per call.
 * ``copra_tpu_torch/csrc/admm_box_shared.cu``: :func:`fused_admm_box_shared`,
   box ADMM where every lane shares one ``Kinv``/``K [n, n]`` (the TPU's
-  ``fused_admm_box_shared``).  Each iteration is a ``[B, n] x [n, n]``
-  product, so it is bound by f32 arithmetic; a block keeps a tile of 32
-  lanes in registers and streams the operators through shared memory.
+  ``fused_admm_box_shared``), n <= 1024.  Each iteration is a ``[B, n] x
+  [n, n]`` product: up to n = 32 a group of threads per lane with no block
+  barrier, above that a block per lane tile fed by bulk TMA copies of
+  operator slices (:func:`box_shared_config`).
 * ``copra_tpu_torch/csrc/admm_general_shared.cu``:
   :func:`fused_admm_general_shared`, general ADMM with a shared dense
   ``C [m, n]`` and one penalty per row (the TPU's
-  ``fused_admm_general_shared``), a dependent chain of small products per
-  lane: one warp per lane.
+  ``fused_admm_general_shared``), n <= 256 and m <= 1024, a dependent
+  chain of small products per lane summed in f64: a group of 8 threads
+  per lane up to n = 16, m = 96 (config 2), a warp per lane with the
+  operators read from L2 above (:func:`general_shared_config`).
 * ``copra_tpu_torch/csrc/admm_general.cu``: :func:`fused_admm_general`,
   general ADMM in x-space with a dense ``C [B, m, n]``, penalties
   ``rho [B, m]`` and ``Kinv [B, n, n]`` per lane (the TPU's
@@ -52,6 +55,7 @@ tensor it launches its kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Tuple
 
 import torch
@@ -148,9 +152,9 @@ def admm_general_shared_plain(Kinv: Tensor, K: Tensor, C: Tensor,
     z)``.
 
     Each product is summed in float64 and rounded once to the inputs'
-    dtype, as the kernel's compensated f32 sums give it: with plain f32
-    sums the iteration's rounding leaves config 2's worst lanes ~5e-5 from
-    the exact solution (``csrc/admm_general_shared.cu``)."""
+    dtype, as the kernel's f64 sums give it: with plain f32 sums the
+    iteration's rounding leaves config 2's worst lanes ~5e-5 from the
+    exact solution (``csrc/admm_general_shared.cu``)."""
     oma = 1.0 - alpha
     rho_inv = 1.0 / rho_vec
 
@@ -210,18 +214,15 @@ _SIGNATURES = {
     },
     "admm_box_shared": {
         "copra_admm_box_shared": (_I, [_P] * 12 + [_I] * 4 + [_F] * 6
-                                  + [_P]),
-        "copra_admm_box_shared_smem_bytes": (ctypes.c_size_t, [_I]),
-        "copra_admm_box_shared_max_n": (_I, []),
+                                  + [_I, _P]),
+        "copra_admm_box_shared_config": (_I, [_I, _I, _P]),
         "copra_admm_box_shared_max_smem": (_I, [_I]),
         "copra_admm_box_shared_error_string": (ctypes.c_char_p, [_I]),
     },
     "admm_general_shared": {
         "copra_admm_general_shared": (_I, [_P] * 12 + [_I] * 5 + [_F] * 3
-                                      + [_P]),
-        "copra_admm_general_shared_smem_bytes": (ctypes.c_size_t, [_I, _I]),
-        "copra_admm_general_shared_max_n": (_I, []),
-        "copra_admm_general_shared_max_m": (_I, []),
+                                      + [_I, _P]),
+        "copra_admm_general_shared_config": (_I, [_I, _I, _I, _P]),
         "copra_admm_general_shared_max_smem": (_I, [_I]),
         "copra_admm_general_shared_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -236,13 +237,18 @@ _loaded = {}
 
 
 def _load(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu`` with its signatures set."""
+    """The library of ``csrc/<name>.cu`` with its signatures set; the
+    launch plans of the shared kernels are checked against this module's
+    mirrors (:func:`box_shared_config`, :func:`general_shared_config`)."""
     lib = _loaded.get(name)
     if lib is None:
         lib = load_library(name)
         for sym, (res, args) in _SIGNATURES[name].items():
             fn = getattr(lib, sym)
             fn.restype, fn.argtypes = res, args
+        check = _PLAN_CHECKS.get(name)
+        if check is not None:
+            check(lib)
         _loaded[name] = lib
     return lib
 
@@ -275,6 +281,18 @@ def _counts(n_iter: int, refine: int) -> None:
                          f"{refine}")
 
 
+_smem_limits = {}
+
+
+def _max_smem(lib, sym: str, dev) -> int:
+    """``lib.<sym>(dev.index)``, the dynamic shared memory a block may opt
+    into on ``dev``, queried once per library and device."""
+    key = (sym, dev.index)
+    if key not in _smem_limits:
+        _smem_limits[key] = getattr(lib, sym)(dev.index)
+    return _smem_limits[key]
+
+
 def _raise_on(rc: int, lib, sym: str) -> None:
     if rc != 0:
         msg = getattr(lib, f"{sym}_error_string")(rc).decode()
@@ -301,7 +319,7 @@ def _launch(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma, alpha, rho,
     mode = kernel_mode(n_iter, refine, assume_x0_zero)
     lib = _load("admm_box")
     need = lib.copra_admm_box_smem_bytes(n, mode)
-    limit = lib.copra_admm_box_max_smem(dev.index)
+    limit = _max_smem(lib, "copra_admm_box_max_smem", dev)
     if need > limit or n > 1024:
         raise ValueError(
             f"admm_box kernel: n = {n} needs {need} bytes of shared memory "
@@ -357,23 +375,101 @@ def fused_admm_box(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor, u: Tensor,
     return out
 
 
+SMEM_LIMIT = 232448      # shared memory one H100 block may use (227 KB)
+BOX_SHARED_MAX_N = 1024
+BOX_SMALL_MAX_N = 32     # widest n of K3's small body
+BOX_BODIES = {"small": 1, "tile": 2}
+_BOX_MAX_STAGES, _BOX_MAX_ROWS, _BOX_SMALL_THREADS = 4, 32, 64
+_USE_PLAIN = ("serve it with use_fused=False (the plain iteration) "
+              "instead")
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def box_shared_config(n: int, body: str = "auto"
+                      ) -> Tuple[int, int, int, int, int, int, int, int, int]:
+    """The launch plan of ``csrc/admm_box_shared.cu`` at width ``n``
+    (mirrored by ``make_config`` there and checked when the library loads):
+    ``(body, a, b, lanes, threads, rows, stages, stage_words,
+    smem_bytes)``.
+
+    ``body`` "auto" takes the small body for ``n <= BOX_SMALL_MAX_N`` and
+    the tile body above.  Small body (1): ``a = G`` threads per lane, the
+    least power of two that gives a thread ``b = P <= 4`` coordinates and
+    ``n P <= 64`` Kinv entries in registers; 64 threads a block; ``Kinv``
+    and ``K`` staged in shared memory.  Tile body (2): a block of
+    ``lanes`` = 32, 16 or 8 lanes (by ``n`` rounded to 64: up to 256, 512,
+    1024), threads of 4 lanes x 8 columns, a warp covering ``a`` lane
+    groups x ``b`` column groups; beside the left-operand tiles and c, l,
+    u, a ring of ``rows`` operator rows a stage (the most, a multiple of 4
+    and at most 32, for which two stages fit in ``SMEM_LIMIT``) and as
+    many stages as fit, at most 4."""
+    if not 1 <= n <= BOX_SHARED_MAX_N:
+        raise ValueError(f"admm_box_shared kernel takes 1 <= n <= "
+                         f"{BOX_SHARED_MAX_N}, got n = {n}; {_USE_PLAIN}")
+    if body == "auto":
+        body = "small" if n <= BOX_SMALL_MAX_N else "tile"
+    if body not in BOX_BODIES:
+        raise ValueError(f"body must be 'auto', 'small' or 'tile', got "
+                         f"{body!r}")
+    if body == "small":
+        if n > BOX_SMALL_MAX_N:
+            raise ValueError(f"the small body takes n <= {BOX_SMALL_MAX_N},"
+                             f" got n = {n}")
+        g = 1
+        while -(-n // g) > 4 or n * -(-n // g) > 64:
+            g *= 2
+        return (1, g, -(-n // g), _BOX_SMALL_THREADS // g,
+                _BOX_SMALL_THREADS, 0, 0, 0, 8 * n * n)
+    np64 = _round_up(n, 64)
+    lanes = 32 if np64 <= 256 else 16 if np64 <= 512 else 8
+    lg = lanes // 4
+    lw = min(lg, 4)
+    cw = 32 // lw
+    npad = _round_up(n, 8 * cw)
+    threads = lg * (npad // 8)
+    sp = _round_up(n, 4)
+    slack = npad - sp
+    budget = SMEM_LIMIT - 4 * (2 * n * lanes + 96 * threads)
+    rows = min(_BOX_MAX_ROWS, sp)
+    while rows > 4 and 2 * (4 * (rows * sp + slack) + 16) > budget:
+        rows -= 4
+    stage_words = rows * sp + slack
+    stages = min(_BOX_MAX_STAGES, budget // (4 * stage_words + 16))
+    return (2, lw, cw, lanes, threads, rows, stages, stage_words,
+            SMEM_LIMIT - budget + stages * (4 * stage_words + 16))
+
+
+def _check_box_plans(lib) -> None:
+    for n in range(1, BOX_SHARED_MAX_N + 1):
+        for body in (("small", "tile") if n <= BOX_SMALL_MAX_N
+                     else ("tile",)):
+            out = (ctypes.c_int * 9)()
+            rc = lib.copra_admm_box_shared_config(n, BOX_BODIES[body], out)
+            want = box_shared_config(n, body)
+            if rc != 0 or tuple(out) != want:
+                raise RuntimeError(
+                    f"csrc/admm_box_shared.cu's launch plan for n = {n} "
+                    f"({body}) is {tuple(out)} (rc {rc}), not {want}")
+
+
 def _launch_box_shared(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma,
-                       alpha, rho, refine):
+                       alpha, rho, refine, body="auto"):
     vecs = (c, l, u, x0, y0, z0)
     B, n = _vec_shape(c)
     dev = Kinv.device
     _check((("Kinv", Kinv, (n, n)), ("K", K, (n, n)),
             *((nm, v, (B, n)) for nm, v in zip(_BOX_VECS, vecs))), dev)
     _counts(n_iter, refine)
+    cfg = box_shared_config(n, body)
     lib = _load("admm_box_shared")
-    need = lib.copra_admm_box_shared_smem_bytes(n)
-    limit = lib.copra_admm_box_shared_max_smem(dev.index)
-    widest = lib.copra_admm_box_shared_max_n()
-    if n > widest or need > limit:
+    limit = _max_smem(lib, "copra_admm_box_shared_max_smem", dev)
+    if cfg[-1] > limit:
         raise ValueError(
-            f"admm_box_shared kernel: n = {n} needs {need} bytes of shared "
-            f"memory per block; it takes n <= {widest} and this device "
-            f"allows {limit} bytes")
+            f"admm_box_shared kernel: n = {n} needs {cfg[-1]} bytes of "
+            f"shared memory per block; this device allows {limit} bytes")
     outs = [torch.empty_like(c) for _ in range(4)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -381,7 +477,8 @@ def _launch_box_shared(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma,
             *(t.data_ptr() for t in (Kinv, K, *vecs, *outs)),
             B, n, int(n_iter), int(refine),
             float(sigma), float(alpha), float(1.0 - alpha), float(rho),
-            float(1.0 / rho), float(sigma + rho), stream)
+            float(1.0 / rho), float(sigma + rho), BOX_BODIES.get(body, 0),
+            stream)
     _raise_on(rc, lib, "copra_admm_box_shared")
     return tuple(outs)
 
@@ -406,8 +503,83 @@ def fused_admm_box_shared(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor,
     return out
 
 
+GENERAL_SHARED_MAX_N, GENERAL_SHARED_MAX_M = 256, 1024
+GENERAL_BODIES = {"group": 1, "wide": 2}
+_GEN_WIDE_WARPS = 4
+_GEN_GROUP, _GEN_GROUP_THREADS, _GEN_GROUP_COLS = 8, 128, 16
+_GEN_GROUP_MAX_ROWS = 12   # rows a thread of the group body, at most
+
+
+def general_shared_config(n: int, m: int, body: str = "auto"
+                          ) -> Tuple[int, int, int, int, int]:
+    """The launch plan of ``csrc/admm_general_shared.cu`` at ``(n, m)``
+    (mirrored by ``make_config`` there and checked when the library loads):
+    ``(body, row_slots, col_slots, lanes_per_block, smem_bytes)``.
+
+    ``body`` "auto" takes "group" (1) for n <= 16, m <= 96: a lane per
+    group of 8 threads, thread g owning rows g + 8 r (``row_slots`` = 4, 8
+    or 12) and the column vectors whole (``col_slots``: n rounded to 4), 16
+    lanes a block, C (rows padded to an even length), Kinv and K staged in
+    f64 and rho, 1 / rho in f32.  Every other shape takes "wide" (2; up to
+    n = 256, m = 1024): a warp per lane, 4 a block, the lane's vectors in
+    its warp's slice of shared memory (an f64 buffer of ``max(m, n)``,
+    five f32 row vectors and four column vectors, rounded to 16 bytes),
+    the operators read from device memory; ``row_slots = col_slots =
+    0``."""
+    if not (1 <= n <= GENERAL_SHARED_MAX_N and 1 <= m <= GENERAL_SHARED_MAX_M):
+        raise ValueError(
+            f"admm_general_shared kernel takes 1 <= n <= "
+            f"{GENERAL_SHARED_MAX_N} and 1 <= m <= {GENERAL_SHARED_MAX_M}, "
+            f"got (n, m) = ({n}, {m}); {_USE_PLAIN}")
+    group = n <= _GEN_GROUP_COLS and m <= _GEN_GROUP * _GEN_GROUP_MAX_ROWS
+    if body == "auto":
+        body = "group" if group else "wide"
+    if body not in GENERAL_BODIES or (body == "group" and not group):
+        raise ValueError(f"admm_general_shared kernel: body {body!r} does "
+                         f"not take (n, m) = ({n}, {m})")
+    if body == "group":
+        rs = 4
+        while m > _GEN_GROUP * rs:
+            rs += 4
+        smem = 8 * (m * _round_up(n, 2) + 2 * n * n) + 8 * m
+        return (1, rs, _round_up(n, 4), _GEN_GROUP_THREADS // _GEN_GROUP,
+                smem)
+    per_warp = _round_up(8 * max(m, n) + 4 * (5 * m + 4 * n), 16)
+    return (2, 0, 0, _GEN_WIDE_WARPS, _GEN_WIDE_WARPS * per_warp)
+
+
+# m at which _load checks the plans of every n <= 256 against the C++: both
+# sides of each multiple of 8 up to the group body's edge (96), then the
+# wide body's up to the envelope's (1024)
+_GENERAL_CHECKED_M = (1, *(m + d for m in range(8, 97, 8) for d in (0, 1)),
+                      128, 255, 256, 257, 512, 1023, 1024)
+
+
+def _check_general_plans(lib) -> None:
+    for n, m in itertools.product(range(1, GENERAL_SHARED_MAX_N + 1),
+                                  _GENERAL_CHECKED_M):
+        for body in ("auto", *GENERAL_BODIES):
+            out = (ctypes.c_int * 5)()
+            rc = lib.copra_admm_general_shared_config(
+                n, m, GENERAL_BODIES.get(body, 0), out)
+            try:
+                want = general_shared_config(n, m, body)
+            except ValueError:
+                want = None
+            if (rc != 0) != (want is None) or (want is not None
+                                              and tuple(out) != want):
+                raise RuntimeError(
+                    f"csrc/admm_general_shared.cu's launch plan for (n, m) "
+                    f"= ({n}, {m}), body {body}, is {tuple(out)} (rc {rc}),"
+                    f" not {want}")
+
+
+_PLAN_CHECKS = {"admm_box_shared": _check_box_plans,
+                "admm_general_shared": _check_general_plans}
+
+
 def _launch_general_shared(Kinv, K, C, rho_vec, l, u, e0, y0, z0, *,
-                           n_iter, sigma, alpha, refine):
+                           n_iter, sigma, alpha, refine, body="auto"):
     B, m = _vec_shape(l)
     n = Kinv.shape[-1] if Kinv.dim() == 2 else -1
     dev = Kinv.device
@@ -416,16 +588,14 @@ def _launch_general_shared(Kinv, K, C, rho_vec, l, u, e0, y0, z0, *,
             ("e0", e0, (B, n)), ("y0", y0, (B, m)), ("z0", z0, (B, m))),
            dev)
     _counts(n_iter, refine)
+    cfg = general_shared_config(n, m, body)
     lib = _load("admm_general_shared")
-    need = lib.copra_admm_general_shared_smem_bytes(n, m)
-    limit = lib.copra_admm_general_shared_max_smem(dev.index)
-    max_n = lib.copra_admm_general_shared_max_n()
-    max_m = lib.copra_admm_general_shared_max_m()
-    if n > max_n or m > max_m or need > limit:
+    limit = _max_smem(lib, "copra_admm_general_shared_max_smem", dev)
+    if cfg[-1] > limit:
         raise ValueError(
-            f"admm_general_shared kernel: (n, m) = ({n}, {m}) needs {need} "
-            f"bytes of shared memory per block; it takes n <= {max_n}, "
-            f"m <= {max_m} and this device allows {limit} bytes")
+            f"admm_general_shared kernel: (n, m) = ({n}, {m}) needs "
+            f"{cfg[-1]} bytes of shared memory per block; this device "
+            f"allows {limit} bytes")
     outs = (torch.empty_like(e0), torch.empty_like(y0), torch.empty_like(z0))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -433,7 +603,8 @@ def _launch_general_shared(Kinv, K, C, rho_vec, l, u, e0, y0, z0, *,
             *(t.data_ptr() for t in (Kinv, K, C, rho_vec, l, u, e0, y0, z0,
                                      *outs)),
             B, n, m, int(n_iter), int(refine),
-            float(sigma), float(alpha), float(1.0 - alpha), stream)
+            float(sigma), float(alpha), float(1.0 - alpha),
+            GENERAL_BODIES.get(body, 0), stream)
     _raise_on(rc, lib, "copra_admm_general_shared")
     return outs
 

@@ -9,7 +9,10 @@ device.  Imports no JAX, so on a GPU host without JAX it runs with
 
 Tolerance: 2e-4 x max(1, max |plain|) after 30 f32 iterations on
 well-conditioned operators (the reference's kernel tolerance); the two sum
-each product in another order.
+each product in another order.  The general kernel sums in f64 and rounds
+each product once, as its plain version does, so it is also held to
+1e-6 x max(1, max |plain|).  A CUDA-graph replay must equal the eager call
+exactly (same kernel, same inputs, no atomics).
 """
 
 import numpy as np
@@ -76,11 +79,16 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(4096, 10), (77, 10), (300, 256), (45, 33),
-                                 (64, 16), (40, 17)])
+@pytest.mark.parametrize("B,n", [
+    (4096, 10), (77, 10), (300, 256), (45, 33), (64, 16), (40, 17),
+    (4096, 1), (13, 1), (4096, 7), (4096, 16), (4096, 31), (29, 31),
+    (4096, 32), (4096, 33), (4096, 64), (97, 64), (4096, 256), (4096, 257),
+    (50, 257), (4096, 600), (70, 600), (4096, 1024), (64, 1024)])
 def test_shared_box_kernel_matches_plain_version(cuda, B, n):
-    """refine 0 and 1, B off the 32-lane tile, n from the resident case
-    (n <= 16) to the streamed roofline width; one launch per call."""
+    """refine 0 and 1, B on and off the lane tile, n across the small body
+    (n <= 32), the tile body with bulk copies (n a multiple of 4) and with
+    plain copies into padded rows (33, 257), up to n = 1024; one launch
+    per call."""
     args = _box(B, n, seed=n)
     for refine in (0, 1):
         before = ak.fused_admm_box_shared.launches
@@ -95,11 +103,28 @@ def test_shared_box_kernel_matches_plain_version(cuda, B, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(4096, 10), (77, 32), (4096, 33),
+                                 (50, 17)])
+def test_shared_box_bodies_agree_across_the_crossover(cuda, B, n):
+    """Both bodies of the box kernel, forced, at widths either would take:
+    the small body up to n = 32 and the tile body below its default
+    range."""
+    args = _box(B, n, seed=n + 1)
+    bodies = ("small", "tile") if n <= ak.BOX_SMALL_MAX_N else ("tile",)
+    for refine in (0, 1):
+        want = ak.admm_box_plain(*args, n_iter=ITERS, refine=refine, **SC)
+        for body in bodies:
+            _agree(ak._launch_box_shared(*args, n_iter=ITERS, refine=refine,
+                                         body=body, **SC), want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,n,m", [(4096, 10, 95), (21, 4, 10), (50, 40, 90),
-                                   (33, 20, 140)])
+                                   (33, 20, 140), (37, 100, 400),
+                                   (9, 256, 1024)])
 def test_shared_general_kernel_matches_plain_version(cuda, B, n, m):
-    """refine 0 and 1, B off the 8-lane block, both instantiations
-    (n <= 32 and m <= 128, then n <= 64 and m <= 256); one launch per
+    """refine 0 and 1, B off the lane blocks, the group body (n <= 16,
+    m <= 96) and the wide body above it, up to (256, 1024); one launch per
     call."""
     args = _general(B, n, m, seed=m)
     for refine in (0, 1):
@@ -123,8 +148,8 @@ def test_shared_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="cpu"):
         ak.fused_admm_box_shared(*box[:2], box[2].cpu(), *box[3:], n_iter=1,
                                  **SC)
-    with pytest.raises(ValueError, match="n <= 256"):
-        ak.fused_admm_box_shared(*_box(4, 257), n_iter=1, **SC)
+    with pytest.raises(ValueError, match="n <= 1024"):
+        ak.fused_admm_box_shared(*_box(4, 1025), n_iter=1, **SC)
     with pytest.raises(ValueError, match="shared"):
         ak.fused_admm_box_lanes(*box, n_iter=1, **SC)
     gen = _general(8, 6, 20)
@@ -137,5 +162,111 @@ def test_shared_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         ak.fused_admm_general_shared(*gen[:3], gen[3][:-1], *gen[4:],
                                      n_iter=1, **GSC)
-    with pytest.raises(ValueError, match="n <= 64"):
-        ak.fused_admm_general_shared(*_general(4, 70, 80), n_iter=1, **GSC)
+    with pytest.raises(ValueError, match="n <= 256"):
+        ak.fused_admm_general_shared(*_general(4, 257, 300), n_iter=1,
+                                     **GSC)
+    with pytest.raises(ValueError, match="m <= 1024"):
+        ak.fused_admm_general_shared(*_general(4, 10, 1025), n_iter=1,
+                                     **GSC)
+
+
+@pytest.mark.cuda
+def test_shared_general_kernel_sums_as_its_plain_version(cuda):
+    """Config-2-like shapes (B = 4096, n = 10, m = 85), 30 iterations,
+    refine 1: f64 sums rounded once, and the f32 steps between products
+    rounded as the plain version's tensor operations round them, hold the
+    kernel to 1e-6 x max(1, max |plain|)."""
+    args = _general(4096, 10, 85, seed=2)
+    kw = dict(n_iter=ITERS, refine=1, **GSC)
+    got = ak.fused_admm_general_shared(*args, **kw)
+    want = ak.admm_general_shared_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        tol = 1e-6 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m", [(4096, 10, 85), (77, 16, 96),
+                                   (45, 3, 7)])
+def test_shared_general_bodies_agree(cuda, B, n, m):
+    """Each body of the general kernel, forced, at shapes both take: f64
+    sums rounded once hold each to 1e-6 x max(1, max |plain|)."""
+    args = _general(B, n, m, seed=m + 1)
+    kw = dict(n_iter=ITERS, refine=1, **GSC)
+    want = ak.admm_general_shared_plain(*args, **kw)
+    for body in ak.GENERAL_BODIES:
+        got = ak._launch_general_shared(*args, body=body, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            tol = 1e-6 * max(1.0, float(w.abs().max()))
+            assert float((g - w).abs().max()) <= tol, body
+
+
+def _replayed(fn):
+    """``fn()`` eagerly, then captured in a CUDA graph and replayed: both
+    results (the first call also builds and loads the kernel, outside the
+    capture)."""
+    eager = fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, captured
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 256])
+def test_shared_box_kernel_replays_in_a_cuda_graph(cuda, n):
+    """One capture of each body and one replay equal the eager call."""
+    args = _box(4096, n, seed=7)
+    eager, captured = _replayed(lambda: ak.fused_admm_box_shared(
+        *args, n_iter=ITERS, refine=1, **SC))
+    for e, c in zip(eager, captured):
+        assert torch.equal(e, c)
+
+
+@pytest.mark.cuda
+def test_shared_general_kernel_replays_in_a_cuda_graph(cuda):
+    args = _general(4096, 10, 85, seed=8)
+    eager, captured = _replayed(lambda: ak.fused_admm_general_shared(
+        *args, n_iter=ITERS, refine=1, **GSC))
+    for e, c in zip(eager, captured):
+        assert torch.equal(e, c)
+
+
+@pytest.mark.cuda
+def test_accurate_tick_at_n_300_runs_the_kernel(cuda):
+    """A shared plan with n = 300 (beyond the former 256-wide envelope):
+    its accurate tick launches the box kernel and its controls agree within
+    1e-5 (the library's contract) with the same tick built with
+    use_fused=False (the plain iteration)."""
+    import copra_tpu_torch as tt
+
+    N, lanes = 300, 64
+    rng = np.random.default_rng(3)
+    x0s = rng.uniform(-4.0, 4.0, size=(lanes, 1))
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    system = tt.LTISystem.create(f32([[0.95]]), f32([[0.1]]), f32([0.0]),
+                                 f32(x0s[0]), N)
+    costs = (tt.TargetCost.create(np.eye(1), [3.0], weights=[1.0]),
+             tt.ControlCost.create([[1.0]], [0.0], weights=[0.1]))
+    plan = tt.make_control_plan(
+        system, costs, (tt.ControlBoundConstraint.create([-1.0], [1.0]),))
+    assert plan.Q.shape[-1] == N
+    opts = tt.SolverOptions(max_iter=ITERS, early_exit=False, polish=False)
+    x0 = f32(x0s)
+    u = {}
+    for fused in (True, False):
+        step = tt.make_plan_step(plan, opts, batched=True,
+                                 seed_center=x0s.mean(0), accurate=True,
+                                 use_fused=fused)
+        before = ak.fused_admm_box_shared.launches
+        u[fused], _, _ = step(plan, x0, None)
+        launched = ak.fused_admm_box_shared.launches - before
+        assert (launched > 0) == fused
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(u[True]).all())
+    assert float((u[True] - u[False]).abs().max()) <= 1e-5
