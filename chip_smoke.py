@@ -7,9 +7,13 @@ Phases, one line or more each:
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. the build of every ``copra_tpu_torch/csrc/*.cu`` with nvcc, one process
    each, all started together;
-3. the box-ADMM kernel against its plain PyTorch version on the card, in
-   all three modes, on the real config-4 operators (2e-4 absolute after 30
-   f32 iterations, the reference's own kernel tolerance), with both times;
+3. the per-lane box-ADMM kernel against its plain PyTorch version on the
+   card, in all three modes, on the real config-4 operators (2e-4 absolute
+   after 30 f32 iterations, the reference's own kernel tolerance): per
+   case the body that serves it with its registers and spills, the kernel
+   by CUDA-graph replay and by eager calls, the plain version, the case's
+   own bound and share of it and the cycles per iteration; the x0 = 0 and
+   general cases again with each body forced;
 4. BASELINE config 4, the fleet of ``bench.py`` (B = 4096 randomized LTV
    point-mass lanes, N = 100, a binding +-60 control bound, 30 ADMM
    iterations, 1 round, 20 timed ticks of drifting x0 after 2 warm-up
@@ -77,7 +81,8 @@ Phases, one line or more each:
 13. config 4 in f32 through the f32 fused tick (default ``use_fused``: the
     per-lane kernel's general body; rho from ``auto_rho`` of that step, as
     ``bench.py``'s plan mode): the kernel against its plain version at the
-    serving rho, then 2 + 5 ticks: finite outputs, statuses 0 or 1 and
+    serving rho and refine 0, and at refine 1 on rho = 1.0 operators, timed
+    as in phase 3; then 2 + 5 ticks: finite outputs, statuses 0 or 1 and
     launches required, its oracle error printed;
 14. the batched Cholesky kernel against its plain version and
     ``torch.linalg.cholesky``: float32 at (B = 4096, n = 10) on config 1's
@@ -117,7 +122,13 @@ Phases, one line or more each:
     drive through ``LMPC(system, solver="active_set")``: max |control -
     control_exact| <= 1e-5.  Then float32 budgets of 2, 5, 20 and 50 ms
     through ``max_wall_time_ms``: ``deadline_info()`` and the measured
-    median wall per solve, printed.
+    median wall per solve, printed;
+19. config 4's fleet at horizon N = 300 (B = 512 per-lane plans of width
+    300, the per-lane kernel's streamed body; 2 rounds): plan, ``auto_rho``
+    and 2 + 5 accurate ticks, lanes 0, 1, 17, 511 gated against the native
+    oracle (<= 1e-5); phase 3's cases at this width (2e-4 x max(1, max
+    |plain|)), and ``fused_admm_box`` at refine 1 on the plan's rho = 1.0
+    operators against its plain version.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  The line
@@ -197,6 +208,11 @@ POLISH_LANES = 256
 FACADE_N, FACADE_TICKS = 100, 5
 BUDGETS_MS = (2.0, 5.0, 20.0, 50.0)
 
+# the per-lane accurate tick at a width the register body does not take
+# (phase 19): config 4's fleet at horizon 300, 2 rounds (one leaves the
+# f32 correction floor above the 1e-5 contract at this horizon)
+WIDE_LANES, WIDE_HORIZON, WIDE_ROUNDS = 512, 300, 2
+
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -224,7 +240,8 @@ def build_fleet(batch: int, horizon: int):
     return arrays, x0s, x0_seq
 
 
-def build_serving(tt, device, batch: int, horizon: int, iters: int):
+def build_serving(tt, device, batch: int, horizon: int, iters: int,
+                  rounds: int = ROUNDS):
     """Plan, measured rho and accurate step, as ``bench.py`` builds them."""
     import torch
 
@@ -240,9 +257,9 @@ def build_serving(tt, device, batch: int, horizon: int, iters: int):
                             rho=1.0, kkt_refine=0)
     opts = opts.replace(rho=tt.auto_rho(plan, x0s, opts, seed_center=x0s,
                                         accurate=True,
-                                        accurate_rounds=ROUNDS))
+                                        accurate_rounds=rounds))
     step = tt.make_plan_step(plan, opts, batched=True, seed_center=x0s,
-                             accurate=True, accurate_rounds=ROUNDS)
+                             accurate=True, accurate_rounds=rounds)
     if device.type == "cuda":
         torch.cuda.synchronize()
     x0_dev = [torch.tensor(x, device=device) for x in x0_seq]
@@ -265,7 +282,9 @@ def gate_vs_oracle(tt, plan, u, x0_last, lanes):
 
 def run_ticks(step, plan, x0_dev, ticks: int):
     """2 warm-up ticks then ``ticks`` timed ones; returns the last
-    controls, the converged share, and host and device ms per tick."""
+    controls, the converged share, host and device ms per tick, and the
+    host's ms per tick to issue them (before the closing synchronize: where
+    it is near the device's, the host sets the pace)."""
     import torch
 
     cuda = x0_dev[0].is_cuda
@@ -286,13 +305,14 @@ def run_ticks(step, plan, x0_dev, ticks: int):
     for t in range(ticks):
         u, sol, warm = step(plan, x0_dev[2 + t], warm)
         converged += (sol.status == 0).sum()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / ticks
     if cuda:
         ev1.record()
         torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / ticks
     dev_ms = ev0.elapsed_time(ev1) / ticks if cuda else float("nan")
     share = float(converged) / (ticks * u.shape[0])
-    return u, sol, share, host_ms, dev_ms
+    return u, sol, share, host_ms, dev_ms, issue_ms
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -351,7 +371,11 @@ def kernel_vs_plain(ak, step, plan, opts, x0_first):
     on well-conditioned operators; at the serving rho its distance from the
     f64 iteration is printed beside the plain version's, untested.
 
-    Returns ``{mode: (err, ms, plain_ms, kernel_vs_f64, plain_vs_f64)}``.
+    Each case is timed eagerly and by CUDA-graph replay (no host
+    dispatch); the x0 = 0 and general cases also with each body that takes
+    the width forced (graph replay).  Returns ``({case: (err, ms, graph_ms,
+    plain_ms, kernel_vs_f64, plain_vs_f64, body, max |plain|)}, {(case,
+    body): (err, graph_ms, max |plain|)})``.
     """
     import torch
 
@@ -384,9 +408,10 @@ def kernel_vs_plain(ak, step, plan, opts, x0_first):
         "general": (Kinv1, K1, *general, sc1),
         "general_at_serving_rho": (Kinv, K, *general, sc),
     }
-    out = {}
+    out, bodies = {}, {}
     for name, (Ki, Ko, vecs, kw, s) in cases.items():
-        got = ak.fused_admm_box_lanes(Ki, Ko, *vecs, **kw, **s)
+        run = lambda: ak.fused_admm_box_lanes(Ki, Ko, *vecs, **kw, **s)
+        got = run()
         want = ak.admm_box_plain(Ki, Ko, *vecs, **kw, **s)
         exact = ak.admm_box_plain(Ki.to(f64), Ko.to(f64),
                                   *(v.to(f64) for v in vecs), **kw, **s)
@@ -395,13 +420,80 @@ def kernel_vs_plain(ak, step, plan, opts, x0_first):
             if tuple(g.shape) != (Ki.shape[0], n) or \
                     not bool(torch.isfinite(g).all()):
                 fail(f"kernel mode {name}: bad output")
-        ms = _cuda_ms(lambda: ak.fused_admm_box_lanes(Ki, Ko, *vecs, **kw,
-                                                      **s), 20)
+        mode = ak.kernel_mode(kw["n_iter"], kw.get("refine", 0),
+                              kw.get("assume_x0_zero", False))
+        body = _LANES_BODY[ak.box_lanes_config(n, mode,
+                                               kw.get("refine", 0))[0]]
         plain_ms = _cuda_ms(lambda: ak.admm_box_plain(Ki, Ko, *vecs, **kw,
                                                       **s), 5)
-        out[name] = (_max_diff(got, want), ms, plain_ms,
-                     _max_diff(got, exact), _max_diff(want, exact))
-    return out
+        scale = max(float(w.abs().max()) for w in want)
+        out[name] = (_max_diff(got, want), _cuda_ms(run, 20),
+                     _graph_ms(run, 20), plain_ms, _max_diff(got, exact),
+                     _max_diff(want, exact), body, scale)
+        if name in ("x0_zero", "general"):
+            full = {"refine": 0, "assume_x0_zero": False, **kw}
+            for body in ("register", "streamed"):
+                if body == "register" and n > ak.BOX_REGISTER_MAX_N:
+                    continue
+                forced = lambda: ak._launch(Ki, Ko, *vecs, body=body, **full,
+                                            **s)
+                err = _max_diff(forced(), want)
+                bodies[(name, body)] = (err, _graph_ms(forced, 20), scale)
+    return out, bodies
+
+
+_LANES_BODY = {1: "register", 2: "streamed", 3: "qx"}
+# box_work's body of each phase-3 case, and its (n_iter, refine)
+_CASE_WORK = {"x0_zero": ("x0_zero", ITERS, 0), "qx": ("qx", 0, 0),
+              "general": ("general", ITERS, 1),
+              "general_at_serving_rho": ("general", ITERS, 1)}
+
+
+def report_box_lanes(ak, label, modes, bodies, B, n, sm_hz, relative=False):
+    """Prints phase 3's cases (or the same cases at another width): per
+    case the body, its registers and spills, the error against the plain
+    version, eager and graph-replay ms, the plain version's ms, the case's
+    own bound, the share of the bound and the cycles per iteration; fails
+    on a held case that disagrees (by KERNEL_TOL, times max(1, max
+    |plain|) where ``relative``).  Returns the held cases' largest
+    error."""
+    worst = 0.0
+    tol_of = lambda scale: KERNEL_TOL * (max(1.0, scale) if relative
+                                         else 1.0)
+    for name, (err, ms, graph_ms, plain_ms, k64, p64, body,
+               scale) in modes.items():
+        work, n_iter, refine = _CASE_WORK[name]
+        bnd = bound(*box_work(B, n, n_iter, refine, work, per_lane=True))
+        mode = ak.kernel_mode(n_iter, refine, work == "x0_zero")
+        regs, spill, _, per_sm = ak._box_lanes_attributes(n, mode, refine)
+        held = name != "general_at_serving_rho"
+        per = (f"{graph_ms * 1e-3 * sm_hz / n_iter:.0f} cycles per "
+               f"iteration" if n_iter else "one pass")
+        tol = tol_of(scale)
+        print(f"kernel {name} ({label}, B = {B}, n = {n}, {body} body, "
+              f"{regs} registers, {spill} bytes of spills, {per_sm} blocks "
+              f"an SM): max_abs_err "
+              f"{err:.3e} ({f'tol {tol:.3e}' if held else 'not held'}); "
+              f"kernel {graph_ms:.4f} ms (CUDA-graph replay; eager calls "
+              f"{ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}), {bnd[0] / graph_ms:.1%} of the bound, {per} at "
+              f"{sm_hz / 1e6:.0f} MHz; distance from the f64 iteration: "
+              f"kernel {k64:.3e}, plain {p64:.3e}")
+        if held:
+            worst = max(worst, err)
+            if not err <= tol:
+                fail(f"kernel mode {name} ({label}) disagrees with the plain "
+                     f"version")
+    for (name, body), (err, graph_ms, scale) in bodies.items():
+        work, n_iter, refine = _CASE_WORK[name]
+        print(f"kernel {name} ({label}), {body} body forced: {graph_ms:.4f} "
+              f"ms (CUDA-graph replay), {graph_ms * 1e-3 * sm_hz / n_iter:.0f}"
+              f" cycles per iteration, max_abs_err {err:.3e}")
+        worst = max(worst, err)
+        if not err <= tol_of(scale):
+            fail(f"kernel {name} ({label}, {body} body) disagrees with the "
+                 f"plain version")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1358,7 +1450,7 @@ def serve_plan(tt, cfg, step=None, plan=None):
     oracle.  Returns ``(u, sol, share, host_ms, dev_ms, err, lanes)``."""
     step = step or cfg["step"]
     plan = plan or cfg["plan"]
-    u, sol, share, host_ms, dev_ms = run_ticks(step, plan, cfg["x0_seq"],
+    u, sol, share, host_ms, dev_ms, _ = run_ticks(step, plan, cfg["x0_seq"],
                                                cfg["ticks"])
     B = u.shape[0]
     if not bool(u.isfinite().all()):
@@ -1372,13 +1464,19 @@ def serve_plan(tt, cfg, step=None, plan=None):
     return u, sol, share, host_ms, dev_ms, err, lanes
 
 
-def k2_vs_plain(ak, step, plan, opts, x0_first):
+def k2_vs_plain(ak, step, plan, opts, x0_first, sm_hz):
     """The per-lane entry point (``fused_admm_box``, the f32 fused tick on
     per-lane plans) against the plain version on config 4's serving
-    operators in f32, at the serving rho with the tick's refine and
-    distinct non-zero x0, y0, z0.  Returns ``(err, tol, ms, plain_ms,
-    bound)``."""
+    operators in f32, with distinct non-zero x0, y0, z0: at the serving
+    rho with the tick's refine, and at refine 1 (``bench.py``'s fused
+    mode) on the same plan's operators at rho = 1.0 (at the serving rho
+    f32 refinement parts two summation orders by cond(K) eps, see phase
+    3).  Prints each case (graph replay and eager ms, the plain version's,
+    the bound, its share and the cycles per iteration) and fails on a
+    disagreement.  Returns ``{case: (err, graph_ms, plain_ms, bound)}``."""
     import torch
+
+    from copra_tpu_torch.plan import _box_fast_state
 
     f32 = torch.float32
     Kinv, K, seed = step.state
@@ -1392,17 +1490,40 @@ def k2_vs_plain(ak, step, plan, opts, x0_first):
     x0v, y0 = vec(), vec()
     z0 = torch.clamp(vec(), l, u)
     refine = max(opts.kkt_refine, 0)
-    args = (Kinv, K, zero, l, u, x0v, y0, z0)
-    kw = dict(n_iter=opts.max_iter, sigma=opts.sigma, alpha=opts.alpha,
-              rho=opts.rho, refine=refine)
-    got = ak.fused_admm_box(*args, **kw)
-    want = ak.admm_box_plain(*args, **kw)
-    torch.cuda.synchronize()
-    err, tol = held(got, want)
-    return (err, tol, _cuda_ms(lambda: ak.fused_admm_box(*args, **kw), 20),
-            _cuda_ms(lambda: ak.admm_box_plain(*args, **kw), 5),
-            bound(*box_work(B, n, opts.max_iter, refine, "general",
-                            per_lane=True)))
+    Kinv1, K1 = (t.to(f32).contiguous() for t in
+                 _box_fast_state(plan, opts.replace(rho=1.0)))
+    sc = dict(n_iter=opts.max_iter, sigma=opts.sigma, alpha=opts.alpha)
+    cases = {f"serving rho, refine {refine}": (Kinv, K, dict(
+                 sc, rho=opts.rho, refine=refine)),
+             "rho 1.0, refine 1": (Kinv1, K1, dict(sc, rho=1.0, refine=1))}
+    out = {}
+    for case, (Ki, Ko, kw) in cases.items():
+        args = (Ki, Ko, zero, l, u, x0v, y0, z0)
+        run = lambda: ak.fused_admm_box(*args, **kw)
+        got = run()
+        want = ak.admm_box_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, tol = held(got, want)
+        ms, graph_ms = _cuda_ms(run, 20), _graph_ms(run, 20)
+        plain_ms = _cuda_ms(lambda: ak.admm_box_plain(*args, **kw), 5)
+        bnd = bound(*box_work(B, n, kw["n_iter"], kw["refine"], "general",
+                              per_lane=True))
+        cfg = ak.box_lanes_config(n, ak.MODE_GENERAL, kw["refine"])
+        regs, spill, _, per_sm = ak._box_lanes_attributes(
+            n, ak.MODE_GENERAL, kw["refine"])
+        print(f"kernel fused_admm_box (config 4 operators in f32, {case}, "
+              f"{_LANES_BODY[cfg[0]]} body, {regs} registers, {spill} bytes "
+              f"of spills, {per_sm} blocks an SM): max_abs_err {err:.3e} "
+              f"(tol {tol:.3e}); kernel "
+              f"{graph_ms:.4f} ms (CUDA-graph replay; eager calls {ms:.4f} "
+              f"ms), plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}), {bnd[0] / graph_ms:.1%} of the bound, "
+              f"{graph_ms * 1e-3 * sm_hz / kw['n_iter']:.0f} cycles per "
+              f"iteration at {sm_hz / 1e6:.0f} MHz")
+        if not err <= tol:
+            fail(f"fused_admm_box ({case}) disagrees with the plain version")
+        out[case] = (err, graph_ms, plain_ms, bnd)
+    return out
 
 
 def fast_step(tt, plan, opts, x0s, center):
@@ -1574,13 +1695,7 @@ def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts,
     c4["step"], rho = fast_step(tt, c4["plan"], opts4, x0s4, x0s4)
     opts4 = opts4.replace(rho=rho)
     print(f"setup: {c4['name']}, rho={rho:.6g} from auto_rho of this step")
-    k2 = k2_vs_plain(ak, c4["step"], c4["plan"], opts4, x0_dev4[0])
-    print(f"kernel fused_admm_box (config 4 operators in f32, serving rho, "
-          f"refine {max(opts4.kkt_refine, 0)}): max_abs_err {k2[0]:.3e} (tol "
-          f"{k2[1]:.3e}); kernel {k2[2]:.4f} ms, plain {k2[3]:.4f} ms, bound "
-          f"{k2[4][0]:.4f} ms ({k2[4][1]})")
-    if not k2[0] <= k2[1]:
-        fail("fused_admm_box disagrees with the plain version")
+    k2 = k2_vs_plain(ak, c4["step"], c4["plan"], opts4, x0_dev4[0], sm_hz)
     reset_counts()
     out = serve_plan(tt, c4)
     k2_launches = ak.fused_admm_box.launches
@@ -1594,8 +1709,9 @@ def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts,
     serving6 = k6["serving rho"]
     return cfgs, {
         "fused_admm_box": kernel_record(
-            "fused_admm_box", KERNEL_SOURCE, REPLACES_K2, k2_launches, k2[0],
-            k2[2], k2[3], k2[4]),
+            "fused_admm_box", KERNEL_SOURCE, REPLACES_K2, k2_launches,
+            max(v[0] for v in k2.values()),
+            *k2[f"serving rho, refine {max(opts4.kkt_refine, 0)}"][1:]),
         "fused_admm_box_shared": kernel_record(
             "fused_admm_box_shared", SHARED_SOURCE, REPLACES_K3, k3_launches,
             max(v[0] for v in k3.values()), r_ms, r_plain, r_bnd),
@@ -2012,6 +2128,76 @@ def facade_phase(tt, dev):
               f"{float(np.median(walls)):.3f} ms per solve (not gated)")
 
 
+def wide_lanes_phase(tt, ak, dev, reset_counts, sm_hz):
+    """Phase 19: config 4's fleet at horizon 300 (B = 512 per-lane plans of
+    width 300, ~370 MB of f32 operators) served by the accurate tick
+    through ``fused_admm_box_lanes`` (the streamed body), gated against the
+    native oracle; then phase 3's cases at this width and
+    ``fused_admm_box`` at refine 1 (rho 1.0 operators) against the plain
+    version (2e-4 x max(1, max |plain|)).  Returns the served launches,
+    the largest held error of ``fused_admm_box_lanes`` and that of
+    ``fused_admm_box``."""
+    import torch
+
+    from copra_tpu_torch.plan import _box_fast_state
+
+    B, N = WIDE_LANES, WIDE_HORIZON
+    plan, opts, step, x0_dev, setup_s = build_serving(
+        tt, dev, B, N, ITERS, rounds=WIDE_ROUNDS)
+    print(f"setup: config 4 at N = {N}, B = {B}, {WIDE_ROUNDS} rounds: plan "
+          f"+ auto_rho + step in {setup_s:.2f} s, rho={opts.rho:.6g}")
+    reset_counts()
+    u, sol, share, host_ms, dev_ms, issue_ms = run_ticks(step, plan, x0_dev,
+                                                         SHORT_TICKS)
+    launches = ak.fused_admm_box_lanes.launches
+    if tuple(u.shape) != (B, N) or not bool(torch.isfinite(u).all()):
+        fail(f"N = {N} tick: controls of shape {tuple(u.shape)}")
+    if launches == 0:
+        fail(f"the N = {N} tick never launched fused_admm_box_lanes")
+    lanes = (0, 1, 17, B - 1)
+    err = gate_vs_oracle(tt, plan, u, x0_dev[SHORT_TICKS + 1].cpu().numpy(),
+                         lanes)
+    print(f"main path config 4 at N = {N} (per-lane plans, accurate, "
+          f"{WIDE_ROUNDS} rounds): {B * 1e3 / host_ms:.1f} solves/s, "
+          f"{host_ms:.4f} host ms/tick, {dev_ms:.4f} device ms/tick (CUDA "
+          f"events), {issue_ms:.4f} host ms/tick to issue, {launches} "
+          f"fused_admm_box_lanes launches over "
+          f"{SHORT_TICKS + 2} ticks, converged share {share:.6f}, "
+          f"max_err_vs_exact {err:.3e} on lanes {list(lanes)}")
+    if not err <= ORACLE_TOL:
+        fail(f"N = {N} tick: max_err_vs_exact {err:.3e} > {ORACLE_TOL}")
+
+    modes, bodies = kernel_vs_plain(ak, step, plan, opts, x0_dev[0])
+    worst = report_box_lanes(ak, f"config 4 operators at N = {N}", modes,
+                             bodies, B, N, sm_hz, relative=True)
+    f32 = torch.float32
+    Kinv1, K1 = (t.to(f32).contiguous() for t in
+                 _box_fast_state(plan, opts.replace(rho=1.0)))
+    rng = np.random.default_rng(19)
+    vec = lambda: torch.tensor(0.1 * rng.normal(size=(B, N)), dtype=f32,
+                               device=dev)
+    l = torch.full((B, N), -0.2, dtype=f32, device=dev)
+    args = (Kinv1, K1, vec(), l, -l, vec(), vec(), torch.clamp(vec(), l, -l))
+    kw = dict(n_iter=ITERS, sigma=opts.sigma, alpha=opts.alpha, rho=1.0,
+              refine=1)
+    run = lambda: ak.fused_admm_box(*args, **kw)
+    got = run()
+    want = ak.admm_box_plain(*args, **kw)
+    torch.cuda.synchronize()
+    k2_err, tol = held(got, want)
+    graph_ms = _graph_ms(run, 5)
+    plain_ms = _cuda_ms(lambda: ak.admm_box_plain(*args, **kw), 2)
+    bnd = bound(*box_work(B, N, ITERS, 1, "general", per_lane=True))
+    print(f"kernel fused_admm_box (config 4 operators at N = {N}, rho 1.0, "
+          f"refine 1, streamed body): max_abs_err {k2_err:.3e} (tol "
+          f"{tol:.3e}); kernel {graph_ms:.4f} ms (CUDA-graph replay), plain "
+          f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+          f"{bnd[0] / graph_ms:.1%} of the bound")
+    if not k2_err <= tol:
+        fail(f"fused_admm_box at N = {N} disagrees with the plain version")
+    return launches, worst, k2_err
+
+
 def general_solver_phases(tt, ak, ck, dev, plan4, opts4, x0_dev4, c1,
                           reset_counts):
     """Phases 14-18; returns the ``fused_admm_box`` launches of phase 17 and
@@ -2103,16 +2289,10 @@ def main() -> int:
     print(f"setup: plan + auto_rho + step for B={BATCH}, N={HORIZON} in "
           f"{setup_s:.2f} s, rho={opts.rho:.6g}")
 
-    # phase 3: kernel vs plain, all three modes
-    modes = kernel_vs_plain(ak, step, plan, opts, x0_dev[0])
-    for mode, (err, ms, plain_ms, k64, p64) in modes.items():
-        held = mode != "general_at_serving_rho"
-        print(f"kernel {mode}: max_abs_err {err:.3e} "
-              f"({f'tol {KERNEL_TOL}' if held else 'not held'}), kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; distance from the f64 "
-              f"iteration: kernel {k64:.3e}, plain {p64:.3e}")
-        if held and not err <= KERNEL_TOL:
-            fail(f"kernel mode {mode} disagrees with the plain version")
+    # phase 3: kernel vs plain, all three modes and both bodies
+    modes, bodies = kernel_vs_plain(ak, step, plan, opts, x0_dev[0])
+    k1_err = report_box_lanes(ak, "config 4 operators", modes, bodies, BATCH,
+                              HORIZON, sm_hz)
     # the one PyTorch call that computes the Q x pass: g = x K - spr x
     Kinv4, K4, _ = step.state
     s4 = torch.full_like(x0_dev[0][:, :1].expand(-1, K4.shape[-1]), 0.01)
@@ -2123,7 +2303,8 @@ def main() -> int:
 
     # phase 4: the config-4 main path
     reset_counts()
-    u, sol, share, host_ms, dev_ms = run_ticks(step, plan, x0_dev, TICKS)
+    u, sol, share, host_ms, dev_ms, issue_ms = run_ticks(step, plan, x0_dev,
+                                                         TICKS)
     launches = ak.fused_admm_box_lanes.launches
     if tuple(u.shape) != (BATCH, HORIZON) or u.dtype != torch.float64 \
             or not bool(torch.isfinite(u).all()):
@@ -2135,19 +2316,21 @@ def main() -> int:
     err = gate_vs_oracle(tt, plan, u, x0_last, lanes)
     print(f"main path: {BATCH * 1e3 / host_ms:.1f} solves/s, "
           f"{host_ms:.4f} host ms/tick, {dev_ms:.4f} device ms/tick "
-          f"(CUDA events), {launches} kernel launches over {TICKS + 2} "
+          f"(CUDA events), {issue_ms:.4f} host ms/tick to issue, "
+          f"{launches} kernel launches over {TICKS + 2} "
           f"ticks, converged share {share:.6f}, max_err_vs_exact {err:.3e} "
           f"on lanes {list(lanes)}")
     if not err <= ORACLE_TOL:
         fail(f"max_err_vs_exact {err:.3e} > {ORACLE_TOL}")
-    # per tick the main path runs the x0 = 0 body and the Q x pass
+    # per tick the main path runs the x0 = 0 body and the Q x pass: the
+    # record's times are their sum (graph replays), its bound the sum of
+    # their bounds
     work = [box_work(BATCH, HORIZON, n_it, 0, body, per_lane=True)
             for body, n_it in (("x0_zero", ITERS), ("qx", 0))]
     kernels = {"fused_admm_box_lanes": kernel_record(
-        "fused_admm_box_lanes", KERNEL_SOURCE, REPLACES, launches,
-        max(modes[m][0] for m in ("x0_zero", "qx", "general")),
-        modes["x0_zero"][1] + modes["qx"][1],
+        "fused_admm_box_lanes", KERNEL_SOURCE, REPLACES, launches, k1_err,
         modes["x0_zero"][2] + modes["qx"][2],
+        modes["x0_zero"][3] + modes["qx"][3],
         bound(sum(w[0] for w in work), sum(w[1] for w in work)))}
 
     # the stagewise serving facades (plans, gains and scales)
@@ -2214,6 +2397,14 @@ def main() -> int:
         tt, ak, ck, dev, plan, opts, x0_dev, cfgs["config 1"], reset_counts)
     kernels.update(records)
     kernels["fused_admm_box"]["launches"] += k2_launches
+
+    # phase 19: the per-lane accurate tick at N = 300 (the streamed body)
+    wide_launches, k1_wide, k2_wide = wide_lanes_phase(tt, ak, dev,
+                                                       reset_counts, sm_hz)
+    k1, k2 = kernels["fused_admm_box_lanes"], kernels["fused_admm_box"]
+    k1["launches"] += wide_launches
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_wide)
     order = ("fused_admm_box_lanes", "fused_admm_box",
              "fused_admm_box_shared", "fused_stagewise_tick",
              "fused_stagewise_tick_streamed", "fused_admm_general_shared",

@@ -8,10 +8,11 @@ points:
   :func:`fused_admm_box`, box ADMM with a distinct ``Kinv``/``K [B, n, n]``
   per lane (the TPU's ``fused_admm_box_lanes`` bodies
   ``_lanes_box_kernel_z0``, ``_lanes_qx_kernel``, ``_lanes_box_kernel``,
-  and ``fused_admm_box``).  What bounds it on an H100 is the bytes of the
-  per-lane operators (164 MB for ``Kinv`` at B = 4096, n = 100, three
-  times the L2): one thread block per lane stages its operator in shared
-  memory once per call.
+  and ``fused_admm_box``), n <= 1024.  What bounds it on an H100 is the
+  bytes of the per-lane operators (164 MB for ``Kinv`` at B = 4096, n =
+  100, three times the L2): a block per lane, up to n = 128 with the
+  lane's ``Kinv`` loaded once into registers, above that streamed from
+  device memory every product (:func:`box_lanes_config`).
 * ``copra_tpu_torch/csrc/admm_box_shared.cu``: :func:`fused_admm_box_shared`,
   box ADMM where every lane shares one ``Kinv``/``K [n, n]`` (the TPU's
   ``fused_admm_box_shared``), n <= 1024.  Each iteration is a ``[B, n] x
@@ -207,8 +208,9 @@ def admm_general_plain(Kinv: Tensor, C: Tensor, c: Tensor, l: Tensor,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "admm_box": {
-        "copra_admm_box": (_I, [_P] * 12 + [_I] * 5 + [_F] * 6 + [_P]),
-        "copra_admm_box_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+        "copra_admm_box": (_I, [_P] * 12 + [_I] * 6 + [_F] * 6 + [_P]),
+        "copra_admm_box_config": (_I, [_I, _I, _I, _I, _P]),
+        "copra_admm_box_attributes": (_I, [_I, _I, _I, _I, _P]),
         "copra_admm_box_max_smem": (_I, [_I]),
         "copra_admm_box_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -238,8 +240,9 @@ _loaded = {}
 
 def _load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu`` with its signatures set; the
-    launch plans of the shared kernels are checked against this module's
-    mirrors (:func:`box_shared_config`, :func:`general_shared_config`)."""
+    launch plans of the box and shared kernels are checked against this
+    module's mirrors (:func:`box_lanes_config`, :func:`box_shared_config`,
+    :func:`general_shared_config`)."""
     lib = _loaded.get(name)
     if lib is None:
         lib = load_library(name)
@@ -303,8 +306,94 @@ def _raise_on(rc: int, lib, sym: str) -> None:
 _BOX_VECS = ("c", "l", "u", "x0", "y0", "z0")
 
 
+BOX_LANES_MAX_N = 1024
+BOX_REGISTER_MAX_N = 128   # widest n of the register body
+BOX_LANES_BODIES = {"register": 1, "streamed": 2, "qx": 3}
+_STREAM_THREADS = 256
+
+
+def box_lanes_config(n: int, mode: int, refine: int = 0, body: str = "auto"
+                     ) -> Tuple[int, int, int, int]:
+    """The launch plan of ``csrc/admm_box.cu`` at width ``n`` in kernel
+    ``mode`` (:func:`kernel_mode`) with ``refine`` steps (mirrored by
+    ``make_config`` there and checked when the library loads): ``(body,
+    chunks, threads, smem_bytes)``, one block per lane.
+
+    The Q x pass (``MODE_QX``) takes body "qx" (3): a thread per
+    coordinate (``threads`` = n rounded to 32), the vector in shared
+    memory.  The iterating modes take "register" (1) up to n =
+    ``BOX_REGISTER_MAX_N`` and "streamed" (2) above; either can be forced
+    where it takes the width.  ``chunks`` = ceil(n / 16): a thread owns a
+    column quad and ``chunks`` row chunks of 4.  Register body: n rounded
+    to 32 threads holding ``Kinv`` in registers, two product buffers of
+    ``16 chunks`` floats, and ``K`` staged in shared memory (``16 chunks``
+    rows of ``threads`` floats) in ``MODE_GENERAL`` with ``refine >= 1``.
+    Streamed body: 256 threads, the operators read from device memory
+    every product, two buffers of ``16 chunks`` floats."""
+    if not 1 <= n <= BOX_LANES_MAX_N:
+        raise ValueError(f"admm_box kernel takes 1 <= n <= "
+                         f"{BOX_LANES_MAX_N}, got n = {n}; {_USE_PLAIN}")
+    if body != "auto" and body not in BOX_LANES_BODIES:
+        raise ValueError(f"body must be 'auto', 'register', 'streamed' or "
+                         f"'qx', got {body!r}")
+    if mode == MODE_QX:
+        if body not in ("auto", "qx"):
+            raise ValueError(f"the Q x pass has one body, got {body!r}")
+        return (3, 0, _round_up(n, 32), 4 * n)
+    if mode not in (MODE_X0_ZERO, MODE_GENERAL) or body == "qx":
+        raise ValueError(f"admm_box kernel: body {body!r} does not serve "
+                         f"mode {mode}")
+    chunks = -(-n // 16)
+    if body == "auto":
+        body = "register" if n <= BOX_REGISTER_MAX_N else "streamed"
+    vectors = 4 * 2 * 16 * chunks
+    if body == "register":
+        if n > BOX_REGISTER_MAX_N:
+            raise ValueError(f"the register body takes n <= "
+                             f"{BOX_REGISTER_MAX_N}, got n = {n}")
+        threads = _round_up(n, 32)
+        staged = mode == MODE_GENERAL and refine > 0
+        return (1, chunks, threads,
+                vectors + (4 * 16 * chunks * threads if staged else 0))
+    return (2, chunks, _STREAM_THREADS, vectors)
+
+
+def _check_box_lanes_plans(lib) -> None:
+    for n, (mode, refine), body in itertools.product(
+            range(1, BOX_LANES_MAX_N + 1),
+            ((MODE_X0_ZERO, 0), (MODE_QX, 0), (MODE_GENERAL, 0),
+             (MODE_GENERAL, 1)), ("auto", *BOX_LANES_BODIES)):
+        out = (ctypes.c_int * 4)()
+        rc = lib.copra_admm_box_config(n, mode, refine,
+                                       BOX_LANES_BODIES.get(body, 0), out)
+        try:
+            want = box_lanes_config(n, mode, refine, body)
+        except ValueError:
+            want = None
+        if (rc != 0) != (want is None) or (want is not None
+                                          and tuple(out) != want):
+            raise RuntimeError(
+                f"csrc/admm_box.cu's launch plan for n = {n}, mode {mode}, "
+                f"refine {refine}, body {body} is {tuple(out)} (rc {rc}), "
+                f"not {want}")
+
+
+def _box_lanes_attributes(n: int, mode: int, refine: int = 0,
+                          body: str = "auto") -> Tuple[int, int, int, int]:
+    """``(registers a thread, spill bytes a thread, largest block, blocks
+    an SM holds)`` of the compiled kernel that serves the plan
+    (``cudaFuncGetAttributes``, the occupancy calculator)."""
+    box_lanes_config(n, mode, refine, body)
+    lib = _load("admm_box")
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib.copra_admm_box_attributes(
+        n, mode, refine, BOX_LANES_BODIES.get(body, 0), out), lib,
+        "copra_admm_box")
+    return tuple(out)
+
+
 def _launch(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma, alpha, rho,
-            refine, assume_x0_zero):
+            refine, assume_x0_zero, body="auto"):
     vecs = (c, l, u, x0, y0, z0)
     if Kinv.dim() != 3 or K.dim() != 3:
         raise ValueError(
@@ -317,20 +406,21 @@ def _launch(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma, alpha, rho,
             *((nm, v, (B, n)) for nm, v in zip(_BOX_VECS, vecs))), dev)
     _counts(n_iter, refine)
     mode = kernel_mode(n_iter, refine, assume_x0_zero)
+    cfg = box_lanes_config(n, mode, refine, body)
     lib = _load("admm_box")
-    need = lib.copra_admm_box_smem_bytes(n, mode)
     limit = _max_smem(lib, "copra_admm_box_max_smem", dev)
-    if need > limit or n > 1024:
+    if cfg[-1] > limit:
         raise ValueError(
-            f"admm_box kernel: n = {n} needs {need} bytes of shared memory "
-            f"per block in mode {mode} (operators resident); this device "
-            f"allows {limit} bytes and 1024 threads per block")
+            f"admm_box kernel: n = {n} needs {cfg[-1]} bytes of shared "
+            f"memory per block in mode {mode}; this device allows {limit} "
+            f"bytes")
     outs = [torch.empty_like(c) for _ in range(4)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.copra_admm_box(
             *(t.data_ptr() for t in (Kinv, K, *vecs, *outs)),
             B, n, int(n_iter), int(refine), mode,
+            BOX_LANES_BODIES.get(body, 0),
             float(sigma), float(alpha), float(1.0 - alpha), float(rho),
             float(1.0 / rho), float(sigma + rho), stream)
     _raise_on(rc, lib, "copra_admm_box")
@@ -574,7 +664,8 @@ def _check_general_plans(lib) -> None:
                     f" not {want}")
 
 
-_PLAN_CHECKS = {"admm_box_shared": _check_box_plans,
+_PLAN_CHECKS = {"admm_box": _check_box_lanes_plans,
+                "admm_box_shared": _check_box_plans,
                 "admm_general_shared": _check_general_plans}
 
 
