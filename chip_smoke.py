@@ -101,7 +101,13 @@ Phases, one line or more each:
     5 warm-started ticks of ``fused_admm_general`` on drifting states, the
     first (cold) tick held against the port's ``solve_qp_batched`` at the
     fixed-count settings on the card (1e-3 x max(1, max |x|)), the last
-    tick's error against the native oracle printed;
+    tick's error against the native oracle printed.  The kernel is timed
+    by CUDA-graph replay and eagerly, with its body, cycles an iteration
+    (also on the first 1, 2, ... blocks an SM of lanes), share of its
+    bound, registers, spills and blocks an SM, and the wide body forced at
+    the same shape; then its wide envelope, per-lane
+    problems at (B, n, m) = (64, 100, 400) and (16, 256, 1024), 30
+    iterations, against the plain version;
 16. the general solver served: the same per-lane fleet through
     ``solve_mpc_batch`` with default ``SolverOptions`` (early exit,
     adaptive rho, polish) in float64, lanes 0, 1, 17, 4095 gated against
@@ -200,6 +206,8 @@ ADMM_GENERAL_SOURCE = "copra_tpu_torch/csrc/admm_general.cu"
 CHOL_SOURCE = "copra_tpu_torch/csrc/chol_batched.cu"
 REPLACES_K7 = "copra_tpu/ops/admm_kernel.py:999"
 REPLACES_K8 = "copra_tpu/ops/cholesky_kernel.py:77"
+# the per-lane general kernel beyond the served shape, (B, n, m)
+LANES_GENERAL_WIDE = ((64, 100, 400), (16, 256, 1024))
 CHOL_F32_RTOL, CHOL_F32_REC = 2e-5, 1e-5
 CHOL_F64_TOL, CHOL_F64_REC = 1e-9, 1e-12
 SOLVER_TOL = 1e-3     # K7 vs solve_qp_batched, times max(1, max |x|)
@@ -1807,8 +1815,8 @@ def lane_oracle_error(tt, system, costs, constraints, u, x0, lanes):
 
 
 def _timed(fn, reps: int):
-    """``(last result, host ms, device ms)`` per call of ``fn`` over
-    ``reps`` calls, ended by a synchronize."""
+    """``(last result, host ms, device ms, host ms to issue)`` per call of
+    ``fn`` over ``reps`` calls, ended by a synchronize."""
     import torch
 
     torch.cuda.synchronize()
@@ -1817,13 +1825,71 @@ def _timed(fn, reps: int):
     t0 = time.perf_counter()
     for i in range(reps):
         out = fn(i)
+    issue_ms = (time.perf_counter() - t0) * 1e3 / reps
     ev[1].record()
     torch.cuda.synchronize()
     return (out, (time.perf_counter() - t0) * 1e3 / reps,
-            ev[0].elapsed_time(ev[1]) / reps)
+            ev[0].elapsed_time(ev[1]) / reps, issue_ms)
 
 
-def general_lanes_phase(tt, ak, ck, dev, reset_counts):
+def random_lanes_general(B: int, n: int, m: int, seed: int, device):
+    """A per-lane general problem off the served paths: per lane C = [random
+    rows; I] normalised, rho per lane and row (two rows 10x, their bounds
+    equal), -inf lower bounds on some rows, +-inf on the last, a linear
+    term and distinct non-zero x0, y0, z0 (f32 on ``device``)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    C = np.concatenate([rng.normal(size=(B, m - n, n)),
+                        np.repeat(np.eye(n)[None], B, 0)], axis=1)
+    C /= np.linalg.norm(C, axis=2, keepdims=True)
+    rho = np.full((B, m), 0.3) * rng.uniform(0.5, 2.0, size=(B, 1))
+    rho[:, :2] *= 10.0
+    Mx = rng.normal(size=(B, n, n))
+    K = (Mx @ Mx.transpose(0, 2, 1) / n + (1.0 + 1e-6) * np.eye(n)
+         + (C.transpose(0, 2, 1) * rho[:, None, :]) @ C)
+    l = -0.4 + 0.1 * rng.normal(size=(B, m))
+    u = l + 0.8
+    l[:, 2:(m - n) // 2] = -np.inf
+    u[:, :2] = l[:, :2]
+    l[:, -1], u[:, -1] = -np.inf, np.inf
+    arrays = (np.linalg.inv(K), C, 0.3 * rng.normal(size=(B, n)), l, u, rho,
+              0.2 * rng.normal(size=(B, n)), 0.1 * rng.normal(size=(B, m)),
+              np.clip(0.2 * rng.normal(size=(B, m)), l, u))
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in arrays]
+
+
+def lanes_general_envelope(ak, device):
+    """The per-lane general kernel at the wide end of its envelope
+    (``LANES_GENERAL_WIDE``, 30 iterations) against the plain version,
+    printed; returns the largest distance."""
+    import torch
+
+    worst = 0.0
+    for B, n, m in LANES_GENERAL_WIDE:
+        args = random_lanes_general(B, n, m, m, device)
+        kw = dict(n_iter=ITERS, sigma=1e-6, alpha=1.6)
+        got = ak.fused_admm_general(*args, **kw)
+        want = ak.admm_general_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, tol = held(got, want)
+        ms = _cuda_ms(lambda: ak.fused_admm_general(*args, **kw), 3)
+        body = _LANES_GENERAL_BODY[ak.general_lanes_config(n, m)[0]]
+        print(f"envelope fused_admm_general (B, n, m) = ({B}, {n}, {m}), "
+              f"{ITERS} iterations, {body} body: max_abs_err {err:.3e} "
+              f"(tol {tol:.3e}); {ms:.4f} ms")
+        if not err <= tol:
+            fail(f"fused_admm_general at (n, m) = ({n}, {m}) disagrees with "
+                 f"the plain version")
+        worst = max(worst, err)
+    return worst
+
+
+_LANES_GENERAL_BODY = {1: "register", 2: "wide"}
+
+
+def general_lanes_phase(tt, ak, ck, dev, reset_counts, sm_hz):
     """Phase 15; returns K7's record fields and the launches of K7 and K8
     on the served path."""
     import torch
@@ -1865,17 +1931,47 @@ def general_lanes_phase(tt, ak, ck, dev, reset_counts):
     exact = ak.admm_general_plain(*(a.double() for a in args), **sc)
     torch.cuda.synchronize()
     err, tol = held(got, want)
-    ms = _cuda_ms(lambda: ak.fused_admm_general(*args, **sc), 10)
+    eager_ms = _cuda_ms(lambda: ak.fused_admm_general(*args, **sc), 10)
+    ms = _graph_ms(lambda: ak.fused_admm_general(*args, **sc), 10)
     plain_ms = _cuda_ms(lambda: ak.admm_general_plain(*args, **sc), 2)
     bnd = bound(*lane_general_work(B, n, m, opts.max_iter))
+    body = _LANES_GENERAL_BODY[ak.general_lanes_config(n, m)[0]]
+    regs, spill, _, per_sm = ak._general_lanes_attributes(n, m)
     print(f"kernel fused_admm_general (config 2 on per-lane LTV dynamics, "
-          f"B = {B}, n = {n}, m = {m}, {opts.max_iter} iterations): "
-          f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, plain "
+          f"B = {B}, n = {n}, m = {m}, {opts.max_iter} iterations, {body} "
+          f"body): max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms "
+          f"by graph replay ({eager_ms:.4f} eager), "
+          f"{ms * 1e-3 * sm_hz / opts.max_iter:.0f} cycles an iteration at "
+          f"{sm_hz / 1e6:.0f} MHz, {bnd[0] / ms:.1%} of the bound; {regs} "
+          f"registers, {spill} B spilled, {per_sm} blocks an SM; plain "
           f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); distance "
           f"from the f64 iteration: kernel {_max_diff(got, exact):.3e}, "
           f"plain {_max_diff(want, exact):.3e}")
     if not err <= tol:
         fail("fused_admm_general disagrees with the plain version")
+    if body != "wide":
+        # cycles an iteration on the first k blocks an SM of lanes: flat
+        # in k when one lane's dependent chain sets the pace, growing with
+        # k when instruction issue does
+        lanes_sm = ak.general_lanes_config(n, m)[3] * \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+        sweep = []
+        for k in range(1, per_sm + 1):
+            part = [a[:min(B, k * lanes_sm)] for a in args]
+            k_ms = _graph_ms(lambda: ak.fused_admm_general(*part, **sc), 10)
+            sweep.append(f"{part[0].shape[0]} lanes "
+                         f"{k_ms * 1e-3 * sm_hz / opts.max_iter:.0f}")
+        wide = lambda: ak._launch_general(*args, body="wide", **sc)
+        w_err, _ = held(wide(), want)
+        w_ms = _graph_ms(wide, 3)
+        print(f"kernel fused_admm_general, cycles an iteration by lanes "
+              f"(1..{per_sm} blocks an SM): {', '.join(sweep)}; wide body "
+              f"forced at the same shape: max_abs_err {w_err:.3e} (tol "
+              f"{tol:.3e}); {w_ms:.4f} ms by graph replay")
+        if not w_err <= tol:
+            fail("fused_admm_general's wide body disagrees with the plain "
+                 "version")
+    err = max(err, lanes_general_envelope(ak, dev))
 
     # the kernels served: K per lane factorized by chol_batched, Kinv from
     # the factor, warm-started fixed-count ticks of fused_admm_general
@@ -1902,7 +1998,8 @@ def general_lanes_phase(tt, ak, ck, dev, reset_counts):
     diff = float((x_cold - sol.x).abs().max())
     stol = SOLVER_TOL * max(1.0, float(sol.x.abs().max()))
     tick(1)
-    x, host_ms, dev_ms = _timed(lambda i: tick(2 + i), SHORT_TICKS)
+    x, host_ms, dev_ms, issue_ms = _timed(lambda i: tick(2 + i),
+                                          SHORT_TICKS)
     k7, k8 = ak.fused_admm_general.launches, ck.chol_batched.launches
     res = matvec(C, x)
     _, lt, ut, _ = stack_constraints(lane_qp(x0_seq[-1]), opts)
@@ -1912,7 +2009,8 @@ def general_lanes_phase(tt, ak, ck, dev, reset_counts):
     print(f"main path per-lane general ADMM (chol_batched -> Kinv -> "
           f"fused_admm_general, {opts.max_iter} iterations per tick): "
           f"{B * 1e3 / host_ms:.1f} solves/s, {host_ms:.4f} host ms/tick, "
-          f"{dev_ms:.4f} device ms/tick (CUDA events), {k7} "
+          f"{dev_ms:.4f} device ms/tick (CUDA events), {issue_ms:.4f} host "
+          f"ms/tick to issue, {k7} "
           f"fused_admm_general and {k8} chol_batched launches over "
           f"{SHORT_TICKS + 2} ticks; cold tick vs solve_qp_batched at the "
           f"fixed-count settings: max |x - x_solver| {diff:.3e} (tol "
@@ -1944,7 +2042,7 @@ def served_general_solver(tt, dev):
             return tt.solve_mpc_batch(system.with_x0(x0), costs, constraints)
 
         solve(0)
-        res, host_ms, dev_ms = _timed(lambda i: solve(1 + i), 2)
+        res, host_ms, dev_ms, _ = _timed(lambda i: solve(1 + i), 2)
         sol = res.solution
         if tuple(res.control.shape) != (FLEET, C2_N) or \
                 not bool(res.control.isfinite().all()):
@@ -1993,7 +2091,7 @@ def served_fused_mode(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts):
     reset_counts()
     tick(0)
     tick(1)
-    sol, host_ms, dev_ms = _timed(lambda i: tick(2 + i), SHORT_TICKS)
+    sol, host_ms, dev_ms, _ = _timed(lambda i: tick(2 + i), SHORT_TICKS)
     launches = ak.fused_admm_box.launches
     if tuple(sol.x.shape) != (BATCH, HORIZON) or \
             not bool(sol.x.isfinite().all()):
@@ -2199,7 +2297,7 @@ def wide_lanes_phase(tt, ak, dev, reset_counts, sm_hz):
 
 
 def general_solver_phases(tt, ak, ck, dev, plan4, opts4, x0_dev4, c1,
-                          reset_counts):
+                          reset_counts, sm_hz):
     """Phases 14-18; returns the ``fused_admm_box`` launches of phase 17 and
     the kernel records of K7 and K8."""
     import torch
@@ -2223,7 +2321,7 @@ def general_solver_phases(tt, ak, ck, dev, plan4, opts4, x0_dev4, c1,
     chol_err = max(c[0] for c in (c1k, c4, c64))
 
     k7, k7_launches, k8_launches = general_lanes_phase(tt, ak, ck, dev,
-                                                       reset_counts)
+                                                       reset_counts, sm_hz)
     served_general_solver(tt, dev)
     k2_launches = served_fused_mode(tt, ak, dev, plan4, opts4, x0_dev4,
                                     reset_counts)
@@ -2394,7 +2492,8 @@ def main() -> int:
                                        reset_counts, sm_hz)
     kernels.update(records)
     k2_launches, records = general_solver_phases(
-        tt, ak, ck, dev, plan, opts, x0_dev, cfgs["config 1"], reset_counts)
+        tt, ak, ck, dev, plan, opts, x0_dev, cfgs["config 1"], reset_counts,
+        sm_hz)
     kernels.update(records)
     kernels["fused_admm_box"]["launches"] += k2_launches
 

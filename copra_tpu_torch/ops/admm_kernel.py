@@ -31,8 +31,10 @@ points:
   ``rho [B, m]`` and ``Kinv [B, n, n]`` per lane (the TPU's
   ``fused_admm_general``), the fixed-count iteration of
   :func:`copra_tpu_torch.qp.admm.solve_qp` with ``kkt_solve="inverse"`` and
-  no refinement: one warp per lane, its operators staged in shared memory
-  where they fit.
+  no refinement, n <= 256 and m <= 1024: up to n = 16, m = 96 (config 2) a
+  group of 16 threads per lane with the lane's rows of ``C``, its ``Kinv``
+  columns and its state in registers, a warp per lane above
+  (:func:`general_lanes_config`).
 
 :func:`admm_box_plain` (the counterpart of ``xla_admm_box``, rank-3 or
 rank-2 operators), :func:`admm_general_shared_plain` and
@@ -229,9 +231,9 @@ _SIGNATURES = {
         "copra_admm_general_shared_error_string": (ctypes.c_char_p, [_I]),
     },
     "admm_general": {
-        "copra_admm_general": (_I, [_P] * 12 + [_I] * 4 + [_F] * 3 + [_I, _P]),
-        "copra_admm_general_max_n": (_I, []),
-        "copra_admm_general_max_m": (_I, []),
+        "copra_admm_general": (_I, [_P] * 12 + [_I] * 5 + [_F] * 3 + [_P]),
+        "copra_admm_general_config": (_I, [_I, _I, _I, _P]),
+        "copra_admm_general_attributes": (_I, [_I, _I, _I, _P]),
         "copra_admm_general_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -240,9 +242,9 @@ _loaded = {}
 
 def _load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu`` with its signatures set; the
-    launch plans of the box and shared kernels are checked against this
-    module's mirrors (:func:`box_lanes_config`, :func:`box_shared_config`,
-    :func:`general_shared_config`)."""
+    launch plans of the ADMM kernels are checked against this module's
+    mirrors (:func:`box_lanes_config`, :func:`box_shared_config`,
+    :func:`general_shared_config`, :func:`general_lanes_config`)."""
     lib = _loaded.get(name)
     if lib is None:
         lib = load_library(name)
@@ -664,11 +666,6 @@ def _check_general_plans(lib) -> None:
                     f" not {want}")
 
 
-_PLAN_CHECKS = {"admm_box": _check_box_lanes_plans,
-                "admm_box_shared": _check_box_plans,
-                "admm_general_shared": _check_general_plans}
-
-
 def _launch_general_shared(Kinv, K, C, rho_vec, l, u, e0, y0, z0, *,
                            n_iter, sigma, alpha, refine, body="auto"):
     B, m = _vec_shape(l)
@@ -720,8 +717,86 @@ def fused_admm_general_shared(Kinv: Tensor, K: Tensor, C: Tensor,
     return out
 
 
+GENERAL_LANES_MAX_N, GENERAL_LANES_MAX_M = 256, 1024
+GENERAL_LANES_BODIES = {"register": 1, "wide": 2}
+_LANE_GROUP, _LANE_THREADS = 16, 128
+_LANE_REG_MAX_N, _LANE_REG_MAX_M = 16, 96
+
+
+def general_lanes_config(n: int, m: int, body: str = "auto"
+                         ) -> Tuple[int, int, int, int, int, int]:
+    """The launch plan of ``csrc/admm_general.cu`` at ``(n, m)`` (mirrored
+    by ``make_config`` there and checked when the library loads):
+    ``(body, row_slots, col_slots, lanes_per_block, threads,
+    smem_bytes)``.
+
+    ``body`` "auto" takes "register" (1) for n <= 16, m <= 96 (config 2's
+    class): a lane per group of 16 threads, 8 lanes a 128-thread block,
+    thread g owning rows g + 16 r of the lane's ``C`` (``row_slots`` = 2,
+    4 or 6: m rounded up to 32, over 16) and column g of its ``Kinv``
+    (``col_slots``: n rounded up to 2), no shared memory.  Every other
+    shape takes "wide" (2; up to n = 256, m = 1024): a warp per lane and
+    per block, the lane's vectors (7 m + 4 n floats, rounded to 16 bytes)
+    in shared memory, the operators read from device memory; ``row_slots
+    = col_slots = 0``.  Wider problems go to ``solve_qp_batched``."""
+    if not (1 <= n <= GENERAL_LANES_MAX_N and 1 <= m <= GENERAL_LANES_MAX_M):
+        raise ValueError(
+            f"admm_general kernel takes 1 <= n <= {GENERAL_LANES_MAX_N} and "
+            f"1 <= m <= {GENERAL_LANES_MAX_M}, got (n, m) = ({n}, {m}); "
+            f"solve wider problems with solve_qp_batched")
+    reg = n <= _LANE_REG_MAX_N and m <= _LANE_REG_MAX_M
+    if body == "auto":
+        body = "register" if reg else "wide"
+    if body not in GENERAL_LANES_BODIES or (body == "register" and not reg):
+        raise ValueError(f"admm_general kernel: body {body!r} does not take "
+                         f"(n, m) = ({n}, {m})")
+    if body == "register":
+        return (1, -(-m // (2 * _LANE_GROUP)) * 2, _round_up(n, 2),
+                _LANE_THREADS // _LANE_GROUP, _LANE_THREADS, 0)
+    return (2, 0, 0, 1, 32, _round_up(4 * (7 * m + 4 * n), 16))
+
+
+def _check_general_lanes_plans(lib) -> None:
+    for n, m in itertools.product(range(GENERAL_LANES_MAX_N + 2),
+                                  (0, *_GENERAL_CHECKED_M, 1025)):
+        for body in ("auto", *GENERAL_LANES_BODIES):
+            out = (ctypes.c_int * 6)()
+            rc = lib.copra_admm_general_config(
+                n, m, GENERAL_LANES_BODIES.get(body, 0), out)
+            try:
+                want = general_lanes_config(n, m, body)
+            except ValueError:
+                want = None
+            if (rc != 0) != (want is None) or (want is not None
+                                              and tuple(out) != want):
+                raise RuntimeError(
+                    f"csrc/admm_general.cu's launch plan for (n, m) = ({n}, "
+                    f"{m}), body {body}, is {tuple(out)} (rc {rc}), not "
+                    f"{want}")
+
+
+_PLAN_CHECKS = {"admm_box": _check_box_lanes_plans,
+                "admm_box_shared": _check_box_plans,
+                "admm_general_shared": _check_general_plans,
+                "admm_general": _check_general_lanes_plans}
+
+
+def _general_lanes_attributes(n: int, m: int, body: str = "auto"
+                              ) -> Tuple[int, int, int, int]:
+    """``(registers a thread, spill bytes a thread, largest block, blocks
+    an SM holds)`` of the compiled kernel that serves the plan
+    (``cudaFuncGetAttributes``, the occupancy calculator)."""
+    general_lanes_config(n, m, body)
+    lib = _load("admm_general")
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib.copra_admm_general_attributes(
+        n, m, GENERAL_LANES_BODIES.get(body, 0), out), lib,
+        "copra_admm_general")
+    return tuple(out)
+
+
 def _launch_general(Kinv, C, c, l, u, rho, x0, y0, z0, *, n_iter, sigma,
-                    alpha):
+                    alpha, body="auto"):
     if C.dim() != 3:
         raise ValueError(
             f"C must be per lane, [B, m, n], got {tuple(C.shape)}; a shared "
@@ -732,21 +807,18 @@ def _launch_general(Kinv, C, c, l, u, rho, x0, y0, z0, *, n_iter, sigma,
             ("l", l, (B, m)), ("u", u, (B, m)), ("rho", rho, (B, m)),
             ("x0", x0, (B, n)), ("y0", y0, (B, m)), ("z0", z0, (B, m))), dev)
     _counts(n_iter, 0)
+    if B < 1:
+        raise ValueError("admm_general kernel: B must be >= 1")
+    general_lanes_config(n, m, body)
     lib = _load("admm_general")
-    max_n = lib.copra_admm_general_max_n()
-    max_m = lib.copra_admm_general_max_m()
-    if B < 1 or n < 1 or m < 1 or n > max_n or m > max_m:
-        raise ValueError(
-            f"admm_general kernel: (B, n, m) = ({B}, {n}, {m}); it takes "
-            f"B, n, m >= 1, n <= {max_n} and m <= {max_m}")
     outs = (torch.empty_like(x0), torch.empty_like(y0), torch.empty_like(z0))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.copra_admm_general(
             *(t.data_ptr() for t in (Kinv, C, c, l, u, rho, x0, y0, z0,
                                      *outs)),
-            B, n, m, int(n_iter), float(sigma), float(alpha),
-            float(1.0 - alpha), dev.index, stream)
+            B, n, m, int(n_iter), GENERAL_LANES_BODIES.get(body, 0),
+            float(sigma), float(alpha), float(1.0 - alpha), stream)
     _raise_on(rc, lib, "copra_admm_general")
     return outs
 
@@ -757,8 +829,9 @@ def fused_admm_general(Kinv: Tensor, C: Tensor, c: Tensor, l: Tensor,
                        alpha: float) -> Tuple[Tensor, Tensor, Tensor]:
     """General fused ADMM with operators PER LANE: ``Kinv [B, n, n]``,
     ``C [B, m, n]``, ``c``/``x0 [B, n]``, ``l``/``u``/``rho``/``y0``/``z0
-    [B, m]``, all f32, n <= 128 and m <= 384.  Returns ``(x, y, z)``.  CPU
-    tensors run :func:`admm_general_plain`; CUDA tensors launch
+    [B, m]``, all f32, n <= 256 and m <= 1024 (wider problems go to
+    ``solve_qp_batched``).  Returns ``(x, y, z)``.  CPU tensors run
+    :func:`admm_general_plain`; CUDA tensors launch
     ``csrc/admm_general.cu``.  The TPU's ``sub_batch`` and ``interpret``
     have no meaning here."""
     kw = dict(n_iter=n_iter, sigma=sigma, alpha=alpha)

@@ -64,27 +64,80 @@ def cuda():
         pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
 
 
+def _held(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        tol = 2e-4 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,m", [(4096, 10, 85), (21, 4, 10), (50, 40, 90),
-                                   (13, 128, 384), (33, 20, 140)])
+                                   (13, 128, 384), (33, 20, 140),
+                                   (8, 129, 140), (6, 16, 96), (6, 16, 128),
+                                   (6, 17, 96), (6, 17, 129), (4, 256, 1024),
+                                   (3, 1, 1), (9, 15, 33)])
 def test_general_kernel_matches_plain_version(cuda, B, n, m):
-    """B off the 8-lane block, both instantiations (n <= 32 and m <= 128,
-    then up to the envelope n = 128, m = 384), operators staged in shared
-    memory and read from global memory; one launch per call."""
+    """B off the 8-lane block, the register body (n <= 16, m <= 96) and the
+    wide body on both sides of the crossover, past the former envelope
+    (n = 128, m = 384) up to the new one (n = 256, m = 1024); one launch
+    per call."""
     args = _general(B, n, m, seed=m)
     before = ak.fused_admm_general.launches
     got = ak.fused_admm_general(*args, n_iter=ITERS, **GSC)
     assert ak.fused_admm_general.launches == before + 1
     want = ak.admm_general_plain(*args, n_iter=ITERS, **GSC)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and bool(torch.isfinite(g).all())
-        tol = 2e-4 * max(1.0, float(w.abs().max()))
-        assert float((g - w).abs().max()) <= tol
+    _held(got, want)
     # n_iter = 0 hands the warm start back
     for g, w in zip(ak.fused_admm_general(*args, n_iter=0, **GSC),
                     (args[6], args[7], args[8])):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m", [(4096, 10, 85), (21, 4, 10), (6, 16, 96),
+                                   (9, 1, 1), (17, 7, 33)])
+@pytest.mark.parametrize("body", ["register", "wide"])
+def test_general_kernel_each_body(cuda, B, n, m, body):
+    """Each body forced on shapes both take: the same iteration."""
+    args = _general(B, n, m, seed=n + m)
+    got = ak._launch_general(*args, n_iter=ITERS, body=body, **GSC)
+    want = ak.admm_general_plain(*args, n_iter=ITERS, **GSC)
+    torch.cuda.synchronize()
+    _held(got, want)
+
+
+@pytest.mark.cuda
+def test_general_kernel_in_a_cuda_graph(cuda):
+    """A launch allocates nothing and does not sync the host: captured in
+    a CUDA graph and replayed on new inputs copied into the captured
+    tensors, it gives what an eager call gives."""
+    args = _general(64, 10, 85, seed=1)
+    new = _general(64, 10, 85, seed=2)
+    ak.fused_admm_general(*args, n_iter=ITERS, **GSC)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ak.fused_admm_general(*args, n_iter=ITERS, **GSC)
+    for a, b in zip(args, new):
+        a.copy_(b)
+    graph.replay()
+    want = ak.fused_admm_general(*new, n_iter=ITERS, **GSC)
+    torch.cuda.synchronize()
+    for g, w in zip(out, want):
+        assert torch.equal(g, w)
+    _held(out, ak.admm_general_plain(*new, n_iter=ITERS, **GSC))
+
+
+@pytest.mark.cuda
+def test_general_kernel_attributes(cuda):
+    """The register body at config 2's shape keeps everything in registers
+    (no spills) and several blocks an SM; the wide body at the envelope's
+    edge fits the default shared memory."""
+    regs, spill, threads, per_sm = ak._general_lanes_attributes(10, 85)
+    assert 0 < regs <= 255 and spill == 0 and threads >= 128 and per_sm >= 1
+    assert ak._general_lanes_attributes(256, 1024)[3] >= 1
 
 
 @pytest.mark.cuda
@@ -150,10 +203,13 @@ def test_general_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                               **GSC)
     with pytest.raises(ValueError, match="per lane"):
         ak.fused_admm_general(gen[0], gen[1][0], *gen[2:], n_iter=1, **GSC)
-    with pytest.raises(ValueError, match="n <= 128"):
-        ak.fused_admm_general(*_general(2, 129, 140), n_iter=1, **GSC)
-    with pytest.raises(ValueError, match="m <= 384"):
-        ak.fused_admm_general(*_general(2, 8, 385), n_iter=1, **GSC)
+    with pytest.raises(ValueError, match="n <= 256"):
+        ak.fused_admm_general(*_general(2, 257, 270), n_iter=1, **GSC)
+    with pytest.raises(ValueError, match="m <= 1024"):
+        ak.fused_admm_general(*_general(2, 8, 1025), n_iter=1, **GSC)
+    with pytest.raises(ValueError, match="body"):
+        ak._launch_general(*_general(2, 17, 40), n_iter=1, body="register",
+                           **GSC)
     K = _spd(4, 12, torch.float32)
     with pytest.raises(TypeError):
         ck.chol_batched(K.half())
