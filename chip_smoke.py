@@ -84,14 +84,19 @@ Phases, one line or more each:
     serving rho and refine 0, and at refine 1 on rho = 1.0 operators, timed
     as in phase 3; then 2 + 5 ticks: finite outputs, statuses 0 or 1 and
     launches required, its oracle error printed;
-14. the batched Cholesky kernel against its plain version and
-    ``torch.linalg.cholesky``: float32 at (B = 4096, n = 10) on config 1's
-    ``K = Q + (sigma + rho) I`` (one penalty per lane, spread over [rho,
-    2 rho]) and at (B = 4096, n = 100) on config 4's per-lane ``K``;
-    float64 at (B = 16, n = 24) on a spectrum spread 1e-6..1e4: ``max |L -
-    L_plain| <= 2e-5 max |L|`` in float32 and 1e-9 in float64, and ``max
-    |L L' - K| / max |K|`` <= 1e-5 and 1e-12; kernel, plain, library and
-    bound times;
+14. the batched Cholesky kernel against its plain version and the
+    library: float32 at (B = 4096, n = 10) on config 1's ``K = Q + (sigma
+    + rho) I`` (one penalty per lane, spread over [rho, 2 rho]) and at (B =
+    4096, n = 100) on config 4's per-lane ``K``; float64 at (B = 16, n =
+    24) on a spectrum spread 1e-6..1e4; the envelope's edge, n = 128 at B =
+    1024 in float32 and float64: ``max |L - L_plain| <= 2e-5 max |L|`` in
+    float32 and 1e-9 in float64, ``max |L L' - K| / max |K|`` <= 1e-5 and
+    1e-12, and each ``K`` with garbage in its strict upper triangle giving
+    the same ``L``; kernel times by CUDA-graph replay and eager, plain,
+    ``torch.linalg.cholesky`` and ``cholesky_ex`` times, the bound (lower
+    triangle read, L written), the kernel's registers, spills and blocks
+    an SM, and its cycles a column on the first 1, 2, ... blocks an SM of
+    matrices;
 15. the per-lane general ADMM kernel against its plain version at full
     width: config 2's costs and constraints on per-lane LTV dynamics (A and
     B perturbed by 1e-3 per lane, so every lane has its own ``C``), B =
@@ -209,6 +214,7 @@ REPLACES_K8 = "copra_tpu/ops/cholesky_kernel.py:77"
 # the per-lane general kernel beyond the served shape, (B, n, m)
 LANES_GENERAL_WIDE = ((64, 100, 400), (16, 256, 1024))
 CHOL_F32_RTOL, CHOL_F32_REC = 2e-5, 1e-5
+CHOL_EDGE_B, CHOL_EDGE_N = 1024, 128
 CHOL_F64_TOL, CHOL_F64_REC = 1e-9, 1e-12
 SOLVER_TOL = 1e-3     # K7 vs solve_qp_batched, times max(1, max |x|)
 POLISHED_TOL = 1e-4   # polished fused solve vs the native oracle
@@ -1031,8 +1037,10 @@ def lane_general_work(B: int, n: int, m: int, n_iter: int):
 def chol_work(B: int, n: int, itemsize: int):
     """Operations and bytes of one batched Cholesky: per matrix n^3 / 3 for
     the rank-1 downdates of the lower triangle, n^2 / 2 for the column
-    scalings and 2n for the pivots; K read once, L written once."""
-    return B * (n ** 3 / 3.0 + n * n / 2.0 + 2.0 * n), 2.0 * B * n * n * itemsize
+    scalings and 2n for the pivots; the lower triangle of K read once (the
+    factor depends on nothing else), L written once."""
+    return (B * (n ** 3 / 3.0 + n * n / 2.0 + 2.0 * n),
+            (n * (n + 1) / 2.0 + n * n) * B * itemsize)
 
 
 def stagewise_flops(N: int, x: int, u: int, r: int, n_iter: int,
@@ -1736,9 +1744,15 @@ def shared_plan_phases(tt, ak, dev, plan4, opts4, x0_dev4, reset_counts,
 # ---------------------------------------------------------------------------
 
 
-def chol_vs_plain(ck, K, label: str):
+def chol_vs_plain(ck, K, label: str, sm_hz: float = 0.0):
     """The Cholesky kernel on ``K [B, n, n]`` against its plain version and
-    ``torch.linalg.cholesky``.  Returns ``(err, tol, rec, rec_tol, ms,
+    the library: its factor held to the plain one and as a factor of K,
+    the same factor from K with garbage in its strict upper triangle (the
+    kernel reads only the lower one); timed by CUDA-graph replay and
+    eagerly beside the plain version, ``torch.linalg.cholesky`` and
+    ``torch.linalg.cholesky_ex``, with its bound, registers, spills and
+    blocks an SM; given the SM clock ``sm_hz``, also cycles a column on the
+    first 1, 2, ... blocks an SM of matrices.  Returns ``(err, graph_ms,
     plain_ms, library_ms, bound)`` and fails the run on a disagreement."""
     import torch
 
@@ -1746,29 +1760,65 @@ def chol_vs_plain(ck, K, label: str):
     B, n = K.shape[0], K.shape[-1]
     L = ck.chol_batched(K)
     want = ck.chol_plain(K)
+    G = K.clone()
+    iu = torch.triu_indices(n, n, 1, device=K.device)
+    G[:, iu[0], iu[1]] = 1e3 * torch.randn(
+        B, iu.shape[1], dtype=K.dtype, device=K.device,
+        generator=torch.Generator(K.device).manual_seed(n))
+    Lg = ck.chol_batched(G)
     torch.cuda.synchronize()
     if L.shape != K.shape or not bool(L.isfinite().all()):
         fail(f"chol_batched ({label}): bad output")
     if float(torch.triu(L, 1).abs().max()) != 0.0:
         fail(f"chol_batched ({label}): the upper triangle is not zero")
+    if not torch.equal(L, Lg):
+        fail(f"chol_batched ({label}): the strict upper triangle of K "
+             f"changed the factor")
     err = float((L - want).abs().max())
     tol = CHOL_F64_TOL if f64 else CHOL_F32_RTOL * float(want.abs().max())
     rec = float((L @ L.mT - K).abs().max() / K.abs().max())
     rec_tol = CHOL_F64_REC if f64 else CHOL_F32_REC
-    ms = _cuda_ms(lambda: ck.chol_batched(K), 10)
+    line = (f"kernel chol_batched ({label}, B = {B}, n = {n}, "
+            f"{'float64' if f64 else 'float32'}): max |L - L_plain| "
+            f"{err:.3e} (tol {tol:.3e}), max |L L' - K| / max |K| {rec:.3e} "
+            f"(tol {rec_tol:.0e}), garbage above the diagonal: the same L")
+    if not (err <= tol and rec <= rec_tol):
+        print(line)
+        fail(f"chol_batched ({label}) disagrees with the plain version")
+    ms = _graph_ms(lambda: ck.chol_batched(K), 20)
+    eager_ms = _cuda_ms(lambda: ck.chol_batched(K), 20)
     plain_ms = _cuda_ms(lambda: ck.chol_plain(K), 2)
-    lib_ms = _cuda_ms(lambda: torch.linalg.cholesky(K), 10)
+    lib_ms = {name: _cuda_ms(lambda: getattr(torch.linalg, name)(K), 10)
+              for name in ("cholesky", "cholesky_ex")}
     bnd = bound(*chol_work(B, n, K.element_size()),
                 peak=F64_PEAK if f64 else F32_PEAK)
-    print(f"kernel chol_batched ({label}, B = {B}, n = {n}, "
-          f"{'float64' if f64 else 'float32'}): max |L - L_plain| {err:.3e} "
-          f"(tol {tol:.3e}), max |L L' - K| / max |K| {rec:.3e} (tol "
-          f"{rec_tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.linalg.cholesky {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms "
-          f"({bnd[1]})")
-    if not (err <= tol and rec <= rec_tol):
-        fail(f"chol_batched ({label}) disagrees with the plain version")
-    return err, tol, rec, rec_tol, ms, plain_ms, lib_ms, bnd
+    body = ("small", "block")[ck.chol_config(n, K.dtype)[0] - 1]
+    regs, spill, _, per_sm, smem = ck._chol_attributes(n, K.dtype)
+    print(f"{line}; {body} body, kernel {ms:.4f} ms by graph replay "
+          f"({eager_ms:.4f} eager), plain {plain_ms:.4f} ms, "
+          f"torch.linalg.cholesky {lib_ms['cholesky']:.4f} ms, "
+          f"torch.linalg.cholesky_ex {lib_ms['cholesky_ex']:.4f} ms, bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]}: lower triangle read, L written; "
+          f"{100 * bnd[0] / ms:.1f}% of it); {regs} registers, {spill} "
+          f"spill bytes, {per_sm} blocks an SM, {smem} shared bytes a block")
+    if sm_hz:
+        # cycles a column on the first k blocks an SM of matrices: flat in
+        # k when one matrix's chain of columns sets the pace, growing with
+        # k when instruction issue does
+        per_wave = ck.chol_config(n, K.dtype)[3] * \
+            torch.cuda.get_device_properties(K.device).multi_processor_count
+        sweep = []
+        for k in range(1, per_sm + 1):
+            if (k - 1) * per_wave >= B:
+                break
+            part = K[:min(B, k * per_wave)]
+            k_ms = _graph_ms(lambda: ck.chol_batched(part), 20)
+            sweep.append(f"{part.shape[0]} matrices "
+                         f"{k_ms * 1e-3 * sm_hz / n:.0f}")
+        print(f"kernel chol_batched ({label}), cycles a column by matrices "
+              f"(1..{per_sm} blocks an SM): {', '.join(sweep)}; whole batch "
+              f"{ms * 1e-3 * sm_hz / n:.0f}")
+    return err, ms, plain_ms, min(lib_ms.values()), bnd
 
 
 def build_config2_ltv(tt, device, dtype, batch: int = 0):
@@ -2309,16 +2359,25 @@ def general_solver_phases(tt, ak, ck, dev, plan4, opts4, x0_dev4, c1,
     pen = o1.sigma + o1.rho * (1.0 + torch.arange(FLEET, device=dev) / FLEET)
     K1 = (p1.Q.to(f32) + pen.to(f32)[:, None, None]
           * torch.eye(n1, dtype=f32, device=dev)).contiguous()
-    c1k = chol_vs_plain(ck, K1, "config 1's K, one penalty per lane")
+    c1k = chol_vs_plain(ck, K1, "config 1's K, one penalty per lane", sm_hz)
     K4 = (plan4.Q.to(f32) + (opts4.sigma + opts4.rho) * torch.eye(
         plan4.Q.shape[-1], dtype=f32, device=dev)).contiguous()
-    c4 = chol_vs_plain(ck, K4, "config 4's per-lane K")
+    c4 = chol_vs_plain(ck, K4, "config 4's per-lane K", sm_hz)
     rng = np.random.default_rng(0)
     V = np.linalg.qr(rng.normal(size=(16, 24, 24)))[0]
     K64 = torch.tensor((V * np.logspace(-6, 4, 24)) @ V.transpose(0, 2, 1)
                        + (1e-6 + 0.1) * np.eye(24), device=dev)
     c64 = chol_vs_plain(ck, K64, "spectrum 1e-6..1e4 + ridge")
-    chol_err = max(c[0] for c in (c1k, c4, c64))
+    # the envelope's edge (the reference sends n > 88 to jnp.linalg.cholesky)
+    f64 = torch.float64
+    Mx = torch.randn(CHOL_EDGE_B, CHOL_EDGE_N, CHOL_EDGE_N, dtype=f64,
+                     device=dev, generator=torch.Generator(dev).manual_seed(0))
+    K128 = Mx @ Mx.mT / CHOL_EDGE_N + 0.1 * torch.eye(CHOL_EDGE_N, dtype=f64,
+                                                      device=dev)
+    edge = [chol_vs_plain(ck, K128.to(dt).contiguous(),
+                          "envelope edge, random SPD", sm_hz)
+            for dt in (f32, f64)]
+    chol_err = max(c[0] for c in (c1k, c4, c64, *edge))
 
     k7, k7_launches, k8_launches = general_lanes_phase(tt, ak, ck, dev,
                                                        reset_counts, sm_hz)
@@ -2332,7 +2391,7 @@ def general_solver_phases(tt, ak, ck, dev, plan4, opts4, x0_dev4, c1,
             k7_launches, *k7),
         "chol_batched": kernel_record(
             "chol_batched", CHOL_SOURCE, REPLACES_K8, k8_launches,
-            chol_err, c4[4], c4[5], c4[7], library_ms=c4[6]),
+            chol_err, c4[1], c4[2], c4[4], library_ms=c4[3]),
     }
 
 

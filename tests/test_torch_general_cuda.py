@@ -145,8 +145,9 @@ def test_general_kernel_attributes(cuda):
 @pytest.mark.parametrize("B,n", [(4096, 10), (130, 33), (3, 4), (37, 100),
                                  (5, 128), (9, 32)])
 def test_chol_kernel_matches_plain_version(cuda, dtype, B, n):
-    """The warp-per-matrix (n <= 32) and block-per-matrix (n <= 128)
-    kernels, B off the block size; one launch per call."""
+    """The small body (a group of threads per matrix, n <= 32) and the
+    block body (a block per matrix, n <= 128), B off the block size; one
+    launch per call."""
     K = _spd(B, n, dtype, seed=n)
     before = ck.chol_batched.launches
     L = ck.chol_batched(K)
@@ -188,6 +189,133 @@ def test_chol_kernel_mpc_conditioning_and_nan(cuda):
     assert bool(torch.isfinite(Lb[:3]).all() and torch.isfinite(Lb[4:]).all())
 
 
+def _chol_held(L, K, want):
+    """``L`` against the plain version's ``want`` and as a factor of
+    ``K``: finite, an exactly zero upper triangle, the file's
+    tolerances."""
+    f64 = K.dtype == torch.float64
+    assert L.shape == K.shape and L.dtype == K.dtype
+    assert bool(torch.isfinite(L).all())
+    assert float(torch.triu(L, 1).abs().max()) == 0.0
+    tol = 1e-9 if f64 else 2e-5 * float(want.abs().max())
+    assert float((L - want).abs().max()) <= tol
+    rec = float((L @ L.mT - K).abs().max() / K.abs().max())
+    assert rec <= (1e-12 if f64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 8, 9, 16, 17, 31, 33, 64, 127])
+@pytest.mark.parametrize("off", [False, True])
+def test_chol_kernel_envelope(cuda, dtype, n, off):
+    """Both sides of each group width (8, 16, 32) and of the body
+    crossover, and partial tiles of the block body; B = 1, or B off the
+    matrices a block holds (a partial warp and block)."""
+    mats = ck.chol_config(n, dtype)[3]
+    B = 3 * mats + mats // 2 + 1 if off else 1
+    K = _spd(B, n, dtype, seed=n + B)
+    before = ck.chol_batched.launches
+    L = ck.chol_batched(K)
+    assert ck.chol_batched.launches == before + 1
+    want = ck.chol_plain(K)
+    torch.cuda.synchronize()
+    _chol_held(L, K, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n", [(4096, 10), (37, 1), (33, 8), (21, 16),
+                                 (19, 24), (5, 32)])
+@pytest.mark.parametrize("body", ["small", "block"])
+def test_chol_kernel_each_body(cuda, dtype, B, n, body):
+    """Each body forced on shapes both take: the same factor."""
+    K = _spd(B, n, dtype, seed=2 * n)
+    L = ck._launch_chol(K, body=body)
+    want = ck.chol_plain(K)
+    torch.cuda.synchronize()
+    _chol_held(L, K, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,body", [(67, 10, "small"), (5, 24, "block"),
+                                      (9, 100, "block"), (3, 128, "block")])
+def test_chol_kernel_reads_only_the_lower_triangle(cuda, dtype, B, n, body):
+    """Garbage in the strict upper triangle of K gives the same L as the
+    clean K, bit for bit."""
+    K = _spd(B, n, dtype, seed=n)
+    G = K.clone()
+    iu = torch.triu_indices(n, n, 1, device="cuda")
+    G[:, iu[0], iu[1]] = 1e3 * torch.randn(
+        B, iu.shape[1], dtype=dtype, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(n))
+    L = ck._launch_chol(K, body=body)
+    Lg = ck._launch_chol(G, body=body)
+    torch.cuda.synchronize()
+    assert torch.equal(L, Lg)
+    _chol_held(L, K, ck.chol_plain(K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,body", [(3, 6, "small"), (3, 6, "block"),
+                                      (70, 10, "small"), (4, 40, "block"),
+                                      (3, 128, "block")])
+def test_chol_kernel_nan_pattern(cuda, dtype, B, n, body):
+    """Fault F8: where pivot 3 fails, the kernel's NaN pattern equals the
+    plain version's (the reference's ``L * tril``), above the diagonal
+    included; the other matrices of the batch factor as they would
+    alone."""
+    K = _spd(B, n, dtype, seed=n + 1)
+    bad = K.clone()
+    bad[1, 3, 3] = -100.0
+    L = ck._launch_chol(bad, body=body)
+    want = ck.chol_plain(bad)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(L), torch.isnan(want))
+    assert bool(torch.isnan(L[1][:, 3:]).all())
+    assert bool(torch.isfinite(L[1][:, :3]).all())
+    keep = [b for b in range(B) if b != 1]
+    assert torch.equal(L[keep], ck._launch_chol(K, body=body)[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 100])
+def test_chol_kernel_in_a_cuda_graph(cuda, n):
+    """A launch allocates nothing and does not sync the host: captured in
+    a CUDA graph and replayed on a new K copied into the captured tensor,
+    it gives what an eager call gives."""
+    K = _spd(256, n, torch.float32, seed=1)
+    new = _spd(256, n, torch.float32, seed=2)
+    ck.chol_batched(K)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ck.chol_batched(K)
+    K.copy_(new)
+    graph.replay()
+    want = ck.chol_batched(new)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    _chol_held(out, new, ck.chol_plain(new))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_kernel_attributes(cuda, dtype):
+    """Every instantiation keeps its entries in registers (no spills),
+    holds at least one block an SM, and declares the shared memory its
+    launch plan states."""
+    for n, body in ((8, "small"), (16, "small"), (32, "small"),
+                    *((16 * t, "block") for t in range(1, 9))):
+        regs, spill, threads, per_sm, smem = ck._chol_attributes(n, dtype,
+                                                                 body)
+        cfg = ck.chol_config(n, dtype, body)
+        assert 0 < regs <= 255 and spill == 0, (n, body, regs, spill)
+        assert threads >= cfg[2] and per_sm >= 1
+        assert smem == cfg[4]
+
+
 @pytest.mark.cuda
 def test_general_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     gen = _general(8, 6, 20)
@@ -217,6 +345,8 @@ def test_general_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ck.chol_batched(K.mT)
     with pytest.raises(ValueError, match=r"\[B, n, n\]"):
         ck.chol_batched(K[0])
+    with pytest.raises(ValueError, match="body"):
+        ck._launch_chol(_spd(4, 33, torch.float32), body="small")
     # the one size rule: n > 128 goes to torch.linalg.cholesky, no launch
     big = _spd(2, 200, torch.float64)
     before = ck.chol_batched.launches
