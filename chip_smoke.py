@@ -27,8 +27,11 @@ Phases, one line or more each:
    fused-vs-XLA tolerance), float32 within 1e-4 x max(1, max |plain|),
    with both times (the plain version timed once), the bound, the chain of
    2 N n_iter dependent stage steps and the cycles per step at the SM's
-   maximum clock; then the same kernel on (3, 2, 0), (6, 2, 4) and
-   (32, 32, 32) with small N and lane counts that are not multiples of 32;
+   maximum clock; the top-up flag in both dtypes (set: the launch returns
+   the state it was given, bit for bit, as the plain version does; clear:
+   the tick as without it) and the time of a launch with it set; then the
+   same kernel on (3, 2, 0), (6, 2, 4) and (32, 32, 32) with small N and
+   lane counts that are not multiples of 32;
 6. config 6 (``bench_all.py``'s SRB quadruped: x = u = r = 12, N = 40,
    128 robots, equilibrated by ``stagewise_scales``, eps_abs 1e-4, rho
    0.1, 300 cold and 50 warm iterations with a 200-iteration top-up)
@@ -139,10 +142,37 @@ Phases, one line or more each:
     and 2 + 5 accurate ticks, lanes 0, 1, 17, 511 gated against the native
     oracle (<= 1e-5); phase 3's cases at this width (2e-4 x max(1, max
     |plain|)), and ``fused_admm_box`` at refine 1 on the plan's rho = 1.0
-    operators against its plain version.
+    operators against its plain version;
+20. config 4 chained: phase 4's fleet, step and drifting states through
+    ``make_plan_multistep``, 20 ticks a CUDA graph from the warm state of
+    phase 4's warm-up ticks: one eager tick and one replay under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), the
+    chained controls against the eager per-tick loop (<= 1e-12), the last
+    tick against the native oracle on lanes 0, 1, 17, 4095 (<= 1e-5);
+    host and device ms per tick over 5 replays, the capture's seconds,
+    the launches a replay and a profile of one replay (kernel time by
+    name, the kernels' busy time against the span: the idle share);
+21. configs 6 and 5 chained through ``make_stagewise_multistep``
+    (``backend="fused"``, the served options and scales), 9 ticks a CUDA
+    graph: the ``x0_seq`` chain of phases 6/7's states, held against the
+    eager per-tick ticks (<= 1e-4 x max(1, max |U|)) and gated at the last
+    state against the native oracle (max_err_rel <= 1e-4), with one eager
+    warm tick and one replay under the sync check; the plant mode from a
+    cold start, gated at the last state it solved (<= 1e-4); a replan (a
+    5% drift of the linear state costs) held against a fresh facade on the
+    new data with no new capture; host and device ms per tick, the
+    capture's seconds, launches a replay, a profile of one replay, the
+    status pass's ms (eager and by graph replay) and the ticks whose
+    top-up ran;
+22. the log-depth forms on the card against their serial forms in float64
+    (relative 1e-9), each timed beside it: ``condense_ltv_assoc`` at
+    config 4's width, ``lqr_solve_assoc`` with the rows' cross term at
+    config 5's (512 lanes, N = 300) and the parallel dual residual there.
 
 Every served path runs with the launch counts set to 0 just before it and
-read just after, and fails if its kernel was never launched.  The line
+read just after, and fails if its kernel was never launched.  A chain's
+kernel launches are counted as the card runs them: the run before its
+capture, then the capture's launches once a replay.  The line
 before the last is the kernels' JSON record: per kernel its source, the
 TPU kernel it replaces, launches on its served paths, its distance from
 its plain version, its time, the plain version's, and its bound (the
@@ -728,6 +758,7 @@ def build_config6(tt, device):
     oracle = lambda lane, x0: stagewise_exact(
         tt, dict(one, x0=x0.astype(np.float64)))
     return dict(name="config 6", tick=tick, opts=wopts, scale=scales,
+                fleet=fleet, cold_opts=opts,
                 x0_seq=[ten(a) for a in x0_seq], x0_np=x0_seq,
                 lanes=(0, QUAD_ROBOTS - 1), oracle=oracle,
                 setup_s=time.perf_counter() - t0)
@@ -776,6 +807,7 @@ def build_config5(tt, device):
         tt, A32, B32, d32, zmp_row, ref[lane % 2], lo[lane % 2],
         hi[lane % 2], x0)[:, None]
     return dict(name="config 5", tick=tick, opts=wopts, scale=None,
+                fleet=fleet, cold_opts=opts,
                 x0_seq=[f32(a) for a in x0_seq], x0_np=x0_seq,
                 lanes=(0, 1), oracle=oracle,
                 setup_s=time.perf_counter() - t0)
@@ -837,9 +869,27 @@ def stagewise_vs_plain(sk, cfg):
     repack_ms = _cuda_ms(lambda: sk.lane_first_plan(plan32), 5)
     bnd = bound(stagewise_flops(N, x, u, r, opts.max_iter, x0.shape[0]),
                 nbytes)
+    # the top-up flag, both dtypes: set, the launch leaves (warm, work) as
+    # given (kernel and plain version, bit for bit); clear, the tick runs
+    # as without the flag (bit for bit)
+    one = torch.ones((), dtype=torch.int32, device=x0.device)
+    for dt in (torch.float64, torch.float32):
+        args = (fp.plan.to(dt), x0.mT.contiguous().to(dt), warm_t.to(dt))
+        ekw = dict(kw, plan_lf=sk.lane_first_plan(args[0]))
+        warm1, work1 = entry(*args, **ekw)
+        for flag in (one, 0 * one):
+            held_ = (args[2], work1) if bool(flag) else (warm1, work1)
+            for got in (entry(*args, **ekw, work=work1, skip=flag),
+                        sk.stagewise_tick_plain(*args, **kw, work=work1,
+                                                skip=flag)
+                        if bool(flag) else held_):
+                if not all(torch.equal(g, h) for g, h in zip(got, held_)):
+                    fail(f"{entry.__name__} {dt}: the top-up flag "
+                         f"{int(flag)} did not keep its state")
+    skip_ms = _cuda_ms(lambda: entry(*args, **ekw, work=work1, skip=one), 20)
     return (entry.__name__, err32, F32_RTOL * scale32,
             out[torch.float64][0][0], ms, plain_ms, out[torch.float64][0][1],
-            bnd, 2 * N * opts.max_iter, repack_ms)
+            bnd, 2 * N * opts.max_iter, repack_ms, skip_ms)
 
 
 def random_stagewise(tt, device, N: int, x: int, u: int, r: int,
@@ -960,10 +1010,11 @@ def serve_stagewise(sk, cfg):
     return U, share, host_ms, dev_ms, status_host, ev[0].elapsed_time(ev[1]) / 5
 
 
-def gate_stagewise(cfg, U):
+def gate_stagewise(cfg, U, x0_last=None):
     """max |U - U_exact| / max |U_exact| over the gated lanes at the last
-    tick's x0."""
-    x0_last = cfg["x0_np"][-1]
+    tick's x0 (``x0_last``, by default the config's last state)."""
+    if x0_last is None:
+        x0_last = cfg["x0_np"][-1]
     err = scale = 0.0
     for lane in cfg["lanes"]:
         exact = cfg["oracle"](lane, x0_last[lane])
@@ -2395,6 +2446,400 @@ def general_solver_phases(tt, ak, ck, dev, plan4, opts4, x0_dev4, c1,
     }
 
 
+# ---------------------------------------------------------------------------
+# The multistep chains (phases 20-21) and the log-depth forms (phase 22).
+# ---------------------------------------------------------------------------
+
+
+def _no_sync(what: str, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: fails
+    if it makes the host wait for the device."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        fail(f"{what} synced the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def _profile(fn):
+    """Device time by kernel of one ``fn()`` (``torch.profiler``): rows
+    ``(ms, count, name)``, longest first; empty when the profiler saw no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
+def _report_profile(label: str, rows, span_ms: float, own=None,
+                    top: int = 6) -> None:
+    """The profile ``rows`` of one call beside ``span_ms``, that call's
+    CUDA-event span: the kernels' busy time and the device's idle share.
+    ``own = (name fragment, ms)`` is what the kernels so named take in one
+    call by their own CUDA-event timing; where the profiler's records of
+    them differ from it by more than 15%, the profile is not trusted and
+    the idle share is not measured.  Busy time above the span by more than
+    3% is a miscount and fails."""
+    if not rows:
+        print(f"profile {label}: the profiler saw no device time; idle "
+              f"share not measured")
+        return
+    busy = sum(r[0] for r in rows)
+    tops = "; ".join(f"{k[:60]} {ms:.4f} ms x{n}" for ms, n, k in rows[:top])
+    head = f"profile {label}: kernels busy {busy:.4f} ms of a " \
+        f"{span_ms:.4f} ms span"
+    if own is not None:
+        seen = sum(ms for ms, _, k in rows if own[0] in k)
+        if abs(seen - own[1]) > 0.15 * own[1]:
+            print(f"{head}; idle share not measured (the profiler saw "
+                  f"{seen:.4f} ms of {own[0]}, its own timing gives "
+                  f"{own[1]:.4f} ms); top: {tops}")
+            return
+    if busy > 1.03 * span_ms:
+        fail(f"profile {label}: kernels busy {busy:.4f} ms exceed the "
+             f"{span_ms:.4f} ms span")
+    print(f"{head} (idle share {1.0 - busy / span_ms:.3f}); top: {tops}")
+
+
+def _chain_launches(chains) -> str:
+    return ", ".join(f"{w.__name__} {n}" for c in chains
+                     for w, n in c.launches)
+
+
+def chained_plan_phase(tt, ak, plan, opts, step, x0_dev, reset_counts,
+                       k1_ms):
+    """Phase 20: config 4's ticks through ``make_plan_multistep``, TICKS of
+    them a call, from the warm state of phase 4's two warm-up ticks
+    (``k1_ms``: K1's time a tick by graph replay, its ROUNDS x0 = 0
+    bodies and the Q x pass).  Returns the kernel's launches (the warm-up
+    run and the replays)."""
+    import torch
+
+    seq = torch.stack(x0_dev[2:2 + TICKS])
+    warm = None
+    for t in range(2):
+        _, _, warm = step(plan, x0_dev[t], warm)
+    _no_sync("an eager accurate tick (phase 4's step)",
+             lambda: step(plan, x0_dev[2], warm))
+    w, loop = warm, []
+    for t in range(TICKS):
+        u, _, w = step(plan, x0_dev[2 + t], w)
+        loop.append(u)
+    x0s = build_fleet(BATCH, HORIZON)[1]
+    reset_counts()
+    many = tt.make_plan_multistep(plan, opts, seed_center=x0s,
+                                  accurate_rounds=ROUNDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    us, statuses, _, _ = many(seq, warm)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    if len(many.chains) != 1:
+        fail(f"make_plan_multistep captured {len(many.chains)} chains")
+    same = max(float((us[t] - loop[t]).abs().max()) for t in range(TICKS))
+    (us, statuses, _, _), host_ms, dev_ms, issue_ms = _timed(
+        lambda i: many(seq, warm), 5)
+    host_ms, dev_ms, issue_ms = (v / TICKS for v in (host_ms, dev_ms,
+                                                    issue_ms))
+    _no_sync("a make_plan_multistep replay", lambda: many(seq, warm))
+    _report_profile(f"config 4 chained, one replay of {TICKS} ticks",
+                    _profile(lambda: many(seq, warm)), dev_ms * TICKS,
+                    own=("box_", k1_ms * TICKS))
+    launches = ak.fused_admm_box_lanes.launches
+    if launches == 0:
+        fail("the chained main path never launched fused_admm_box_lanes")
+    err = gate_vs_oracle(tt, plan, us[-1], x0_dev[TICKS + 1].cpu().numpy(),
+                         (0, 1, 17, BATCH - 1))
+    share = float((statuses == 0).double().mean())
+    print(f"main path chained (config 4, {TICKS} ticks a CUDA graph): "
+          f"{BATCH * 1e3 / host_ms:.1f} solves/s, {host_ms:.4f} host "
+          f"ms/tick, {dev_ms:.4f} device ms/tick (CUDA events), "
+          f"{issue_ms:.4f} host ms/tick to issue; capture (warm-up run, "
+          f"capture, first replay) {capture_s:.3f} s; launches a replay: "
+          f"{_chain_launches(many.chains.values())}; {launches} "
+          f"fused_admm_box_lanes launches in all; converged share "
+          f"{share:.6f}; max |U - per-tick loop| {same:.3e}; "
+          f"max_err_vs_exact {err:.3e} on lanes {[0, 1, 17, BATCH - 1]}")
+    if not same <= 1e-12:
+        fail(f"chained ticks differ from the per-tick loop by {same:.3e}")
+    if not err <= ORACLE_TOL:
+        fail(f"chained max_err_vs_exact {err:.3e} > {ORACLE_TOL}")
+    return launches
+
+
+def _stack(seq):
+    import torch
+
+    return torch.stack(list(seq))
+
+
+def _drifted(sqp):
+    """A model update of a served problem, for a replan: the couplings of
+    the dynamics 2% stronger (the off-diagonal of A, which keeps a
+    triangular A's eigenvalues), B 2% stronger, the costs Qx, Ru and qx 5%
+    higher."""
+    import dataclasses
+
+    import torch
+
+    diag = torch.diag_embed(torch.diagonal(sqp.A, dim1=-2, dim2=-1))
+    return dataclasses.replace(sqp, A=sqp.A + 0.02 * (sqp.A - diag),
+                               B=sqp.B * 1.02, Qx=sqp.Qx * 1.05,
+                               Ru=sqp.Ru * 1.05, qx=sqp.qx * 1.05)
+
+
+def _bit_equal(got, want) -> bool:
+    """Two calls' ``(states, U0s, statuses, info, warm)``, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    pairs = list(zip(got[:3], want[:3])) + list(zip(got[4], want[4]))
+    pairs += [(getattr(got[3], f.name), getattr(want[3], f.name))
+              for f in dataclasses.fields(got[3])]
+    return all(torch.equal(a, b) for a, b in pairs)
+
+
+def chained_stagewise_phase(tt, sk, cfg, reset_counts, kernel_ms):
+    """Phase 21 for one stagewise config: ``make_stagewise_multistep``
+    with the served options (backend ``"fused"``): an ``x0_seq`` chain of
+    the config's drifting states, gated against the native oracle at the
+    last state; the plant mode, gated at the last state it solved; a
+    replan that moves the dynamics and the costs, after which both chains
+    run with no new capture.  The tick kernel's launches are read right
+    after these calls of the chain and returned.  Then, counted apart: the
+    chain held against the eager per-tick loop, the replanned chains
+    against a fresh facade on the new data (bit for bit), the ticks whose
+    top-up ran, the status pass timed and a replay profiled
+    (``kernel_ms``: the tick kernel's ms at the warm iteration count, from
+    phase 5)."""
+    import torch
+    from copra_tpu_torch.qp.riccati import make_stagewise_step
+
+    seq = _stack(cfg["x0_seq"])
+    T, B = seq.shape[:2]
+    kw = dict(cold_options=cfg["cold_opts"], backend="fused",
+              scaling="none" if cfg["scale"] is None else cfg["scale"])
+    # the chained main path alone: the leading cold tick, the captures,
+    # the replays, a replan and the replays after it
+    reset_counts()
+    many = tt.make_stagewise_multistep(cfg["fleet"], cfg["opts"], **kw)
+    entry = (sk.fused_stagewise_tick if many._data[3].mode == "resident"
+             else sk.fused_stagewise_tick_streamed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, _, _, warm = many(None, T, x0_seq=seq)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    out, host_ms, dev_ms, issue_ms = _timed(
+        lambda i: many(None, T, warm=warm, x0_seq=seq), 3)
+    host_ms, dev_ms, issue_ms = (v / T for v in (host_ms, dev_ms, issue_ms))
+    _, u0s, statuses, info, _ = out
+    _no_sync(f"a {cfg['name']} chain replay",
+             lambda: many(None, T, warm=warm, x0_seq=seq))
+    # plant mode: the leading cold tick, then T chained ticks
+    states, _, _, pinfo, _ = many(seq[0], T)
+    chains = dict(many.chains)
+    new = _drifted(cfg["fleet"])
+    many.replan(new)
+    got = (many(None, T, warm=warm, x0_seq=seq), many(seq[0], T))
+    torch.cuda.synchronize()
+    launches = entry.launches
+    if launches == 0:
+        fail(f"{cfg['name']}: the chain never launched {entry.__name__}")
+    if set(chains) != {(T, True), (T, False)} or many.chains != chains:
+        fail(f"{cfg['name']}: the replan captured a chain again "
+             f"({sorted(chains)} -> {sorted(many.chains)})")
+    per_replay = _chain_launches(chains.values())
+    U_last = info.x.reshape(B, -1, u0s.shape[-1])
+    rel, err = gate_stagewise(cfg, U_last)
+    prel, perr = gate_stagewise(cfg, pinfo.x.reshape(B, -1, u0s.shape[-1]),
+                                states[-2].cpu().numpy())
+    # not counted from here: the eager twins and the fresh facade
+    fresh = tt.make_stagewise_multistep(new, cfg["opts"], **kw)
+    want = (fresh(None, T, warm=warm, x0_seq=seq), fresh(seq[0], T))
+    replan_same = all(_bit_equal(g, w) for g, w in zip(got, want))
+    moved = float((got[0][3].x - info.x).abs().max())
+    tick = make_stagewise_step(cfg["fleet"], cfg["opts"], **kw)
+    _no_sync(f"an eager {cfg['name']} warm tick (device top-up)",
+             lambda: tick(seq[0], warm))
+    w, loop = warm, []
+    for t in range(T):
+        w_in = w
+        X_t, U_t, info_t, w = tick(seq[t], w)
+        loop.append(U_t[:, 0])
+    scale = max(1.0, float(U_last.abs().max()))
+    same = max(float((u0s[t] - loop[t]).abs().max()) for t in range(T))
+    same = max(same, float((info.x - info_t.x).abs().max())) / scale
+    share = float((statuses == 0).double().mean())
+    # the ticks whose top-up ran: the first run of each eager tick, from
+    # the same warm state, with no top-up
+    first = make_stagewise_step(cfg["fleet"], cfg["opts"].replace(
+        topup_iters=0), **kw)
+    w, fired = warm, 0
+    for t in range(T):
+        fired += int(not bool((first(seq[t], w)[2].status == 0).all()))
+        w = tick(seq[t], w)[3]
+    # the status pass (the log-depth dual residual) on the last eager
+    # tick's iterates, in the solver's (scaled) space
+    fp = tick._plans[tick._plan_key(cfg["opts"])]
+    Xs, Us = X_t, U_t
+    if cfg["scale"] is not None:
+        Xs, Us = X_t / cfg["scale"][0], U_t / cfg["scale"][1]
+    status = lambda: sk._lane_residuals(fp.sqp, cfg["opts"], fp.rho_x,
+                                        fp.rho_u, fp.rows, Xs, Us, *w_in)
+    status_ms = _cuda_ms(status, 5)
+    status_graph_ms = _graph_ms(status, 5)
+    # one replay on the config's own data again, profiled, beside the tick
+    # kernel's own total: T warm runs and the top-ups that ran
+    opts = cfg["opts"]
+    own = kernel_ms * (T + fired * opts.topup_iters / opts.max_iter)
+    many.replan(cfg["fleet"])
+    _report_profile(f"{cfg['name']} chained, one replay of {T} ticks",
+                    _profile(lambda: many(None, T, warm=warm, x0_seq=seq)),
+                    dev_ms * T, own=("stagewise_tick_kernel", own))
+    _report_profile(f"{cfg['name']} status pass, eager", _profile(status),
+                    status_ms)
+    print(f"main path chained {cfg['name']} ({T} ticks a CUDA graph, "
+          f"x0_seq): {host_ms:.4f} host ms/tick, {dev_ms:.4f} device "
+          f"ms/tick (CUDA events), {issue_ms:.4f} host ms/tick to issue; "
+          f"capture (cold tick, warm-up run, capture, first replay) "
+          f"{capture_s:.3f} s; launches a replay: {per_replay}; "
+          f"{launches} {entry.__name__} launches on the chained path "
+          f"(cold ticks, warm-up runs, replays); converged share "
+          f"{share:.6f}; status pass {status_ms:.4f} device ms eager, "
+          f"{status_graph_ms:.4f} by graph replay; top-up ran on {fired} of "
+          f"{T} ticks; max |chain - per-tick loop| / scale {same:.3e}; "
+          f"max_err_vs_exact {err:.3e}, max_err_rel {rel:.3e}; plant mode "
+          f"max_err_rel {prel:.3e} ({perr:.3e}); after a replan of A, B, "
+          f"Qx, Ru and qx (controls moved {moved:.3e}, no new capture) "
+          f"both chains equal a fresh facade bit for bit: {replan_same}")
+    if not same <= F32_RTOL:
+        fail(f"{cfg['name']}: the chain differs from the per-tick loop by "
+             f"{same:.3e}")
+    if not (rel <= REL_TOL and prel <= REL_TOL):
+        fail(f"{cfg['name']} chained: max_err_rel {rel:.3e} / plant "
+             f"{prel:.3e} > {REL_TOL}")
+    if not (replan_same and moved > 0.0):
+        fail(f"{cfg['name']}: the replanned chains differ from a fresh "
+             f"facade (moved {moved:.3e})")
+    return launches
+
+
+def assoc_phase(tt, dev, plan_arrays, cfg5):
+    """Phase 22: the log-depth forms on the card against their serial
+    forms, in float64 (relative 1e-9): ``condense_ltv_assoc`` at config
+    4's width (B = 4096, N = 100), ``lqr_solve_assoc`` at config 5's (512
+    lanes, N = 300, x = 3, u = 1, with the rows' cross term), the
+    parallel dual residual on config 5's served data and at the fused
+    envelope's widest state (128 lanes, N = 300, x = 64, u = r = 32,
+    with its work memory); each timed beside its serial form."""
+    import dataclasses
+
+    import torch
+    from copra_tpu_torch.qp import riccati as tr
+
+    f64 = lambda a: torch.as_tensor(a, device=dev).double()
+    As, Bs, ds = (f64(a) for a in plan_arrays[:3])
+    lines, worst = [], 0.0
+
+    def held(name, fast, slow, reps=3):
+        nonlocal worst
+        got, want = fast(), slow()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        scale = max(1.0, max(float(w.abs().max()) for w in want))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        worst = max(worst, err / scale)
+        lines.append(f"{name} rel err {err / scale:.3e}, "
+                     f"{_cuda_ms(fast, reps):.4f} ms (serial "
+                     f"{_cuda_ms(slow, reps):.4f} ms)")
+
+    held("condense_ltv_assoc (4096, 100, 2, 1)",
+         lambda: tuple(getattr(tt.condense_ltv_assoc(As, Bs, ds), k)
+                       for k in ("Phi", "Psi", "xi")),
+         lambda: tuple(getattr(tt.condense_ltv(As, Bs, ds), k)
+                       for k in ("Phi", "Psi", "xi")))
+    sqp = tr.StagewiseQP(**{
+        f.name: None if getattr(cfg5["fleet"], f.name) is None
+        else getattr(cfg5["fleet"], f.name).double()
+        for f in dataclasses.fields(cfg5["fleet"])})
+    opts = cfg5["opts"]
+    rho_x = tr._box_penalties(sqp.xlb, sqp.xub, float(opts.rho))
+    rho_u = tr._box_penalties(sqp.ulb, sqp.uub, float(opts.rho))
+    Qx_r, Ru_r, S, rows = tr._penalized(sqp, opts, rho_x, rho_u)
+    # an ADMM iteration's linear terms: the costs shifted by random
+    # penalty terms, from the config's last drifting state
+    rng = torch.Generator(device=dev).manual_seed(22)
+    noise = lambda t: 0.1 * torch.randn(t.shape, generator=rng, device=dev,
+                                        dtype=torch.float64)
+    lq = (sqp.A, sqp.B, sqp.d, Qx_r, sqp.qx + noise(sqp.qx), Ru_r,
+          sqp.ru + noise(sqp.ru), cfg5["x0_seq"][-1].double())
+    held("lqr_solve_assoc (512, 300, 3, 1), cross term",
+         lambda: tr.lqr_solve_assoc(*lq, S=S),
+         lambda: tr.lqr_solve(*lq, S=S))
+    X, U = tr.lqr_solve(*lq, S=S)
+    yX = 0.1 * torch.randn(X.shape, generator=rng, device=dev,
+                           dtype=torch.float64)
+    yU = 0.1 * torch.randn(U.shape, generator=rng, device=dev,
+                           dtype=torch.float64)
+    yS = 0.1 * torch.randn(sqp.clo.shape, generator=rng, device=dev,
+                           dtype=torch.float64)
+    held("stagewise_dual_residual parallel (512, 300, 3, 1, 2)",
+         lambda: tr.stagewise_dual_residual(sqp, X, U, yX, yU, yS,
+                                            parallel=True),
+         lambda: tr.stagewise_dual_residual(sqp, X, U, yX, yU, yS))
+    # the fused envelope's widest state (x + u + r = 128), where the scan's
+    # combine takes its matrix-product form; random stable dynamics
+    Bw, Nw, xw, uw, rw = 128, 300, 64, 32, 32
+    rn = lambda *shape: torch.randn(shape, generator=rng, device=dev,
+                                    dtype=torch.float64)
+    eye = torch.eye(xw, device=dev, dtype=torch.float64)
+    wide = tr.StagewiseQP(
+        A=0.9 * eye + 0.05 * rn(Bw, Nw, xw, xw) / xw ** 0.5,
+        B=rn(Bw, Nw, xw, uw), d=rn(Bw, Nw, xw), Qx=rn(Bw, Nw + 1, xw, xw),
+        qx=rn(Bw, Nw + 1, xw), Ru=rn(Bw, Nw, uw, uw), ru=rn(Bw, Nw, uw),
+        x0=rn(Bw, xw), xlb=rn(Bw, Nw + 1, xw), xub=rn(Bw, Nw + 1, xw),
+        ulb=rn(Bw, Nw, uw), uub=rn(Bw, Nw, uw), Cx=rn(Bw, Nw, rw, xw),
+        Cu=rn(Bw, Nw, rw, uw), clo=rn(Bw, Nw, rw), chi=rn(Bw, Nw, rw))
+    wv = (rn(Bw, Nw + 1, xw), rn(Bw, Nw, uw), rn(Bw, Nw + 1, xw),
+          rn(Bw, Nw, uw), rn(Bw, Nw, rw))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr.stagewise_dual_residual(wide, *wv, parallel=True)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    data_gb = _nbytes(*(getattr(wide, f.name) for f in
+                        dataclasses.fields(wide)), *wv) / 1e9
+    held(f"stagewise_dual_residual parallel ({Bw}, {Nw}, {xw}, {uw}, "
+         f"{rw})",
+         lambda: tr.stagewise_dual_residual(wide, *wv, parallel=True),
+         lambda: tr.stagewise_dual_residual(wide, *wv))
+    lines[-1] += (f", {peak_gb:.3f} GB of work memory beside {data_gb:.3f} "
+                  f"GB of data")
+    print("log-depth forms: " + "; ".join(lines))
+    if not worst <= 1e-9:
+        fail(f"a log-depth form differs from its serial form by {worst:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -2407,13 +2852,7 @@ def main() -> int:
     from copra_tpu_torch.ops import build
     from copra_tpu_torch.ops import cholesky_kernel as ck
     from copra_tpu_torch.ops import stagewise_kernel as sk
-
-    def reset_counts():
-        for fn in (ak.fused_admm_box_lanes, ak.fused_admm_box,
-                   ak.fused_admm_box_shared, ak.fused_admm_general_shared,
-                   ak.fused_admm_general, ck.chol_batched,
-                   sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed):
-            fn.launches = 0
+    from copra_tpu_torch.ops.counts import reset as reset_counts
 
     # phase 1: device
     dev = torch.device("cuda", 0)
@@ -2504,7 +2943,7 @@ def main() -> int:
     probe = {}
     for cfg in configs:
         (entry, e32, b32, e64, ms, plain_ms, ms64, bnd, chain,
-         repack_ms) = stagewise_vs_plain(sk, cfg)
+         repack_ms, skip_ms) = stagewise_vs_plain(sk, cfg)
         probe[entry] = (e32, ms, plain_ms, bnd)
         print(f"kernel {entry} ({cfg['name']} plan, {cfg['opts'].max_iter} "
               f"iterations): float64 max_abs_err {e64:.3e} (tol {F64_TOL}),"
@@ -2513,7 +2952,9 @@ def main() -> int:
               f" bound {bnd[0]:.4f} ms ({bnd[1]}); chain {chain} dependent "
               f"stage steps, {ms * 1e-3 * sm_hz / chain:.0f} cycles per "
               f"step at {sm_hz / 1e6:.0f} MHz; the lane-first plan, made "
-              f"once per plan, {repack_ms:.4f} ms")
+              f"once per plan, {repack_ms:.4f} ms; a launch with the top-up "
+              f"flag set (state kept bit for bit, both dtypes) "
+              f"{skip_ms:.4f} ms")
         if not (e64 <= F64_TOL and e32 <= b32):
             fail(f"{entry} disagrees with the plain version")
     shapes_vs_plain(tt, sk, dev)
@@ -2561,6 +3002,20 @@ def main() -> int:
                                                        reset_counts, sm_hz)
     k1, k2 = kernels["fused_admm_box_lanes"], kernels["fused_admm_box"]
     k1["launches"] += wide_launches
+
+    # phase 20: config 4 chained, TICKS ticks a CUDA graph
+    k1["launches"] += chained_plan_phase(
+        tt, ak, plan, opts, step, x0_dev, reset_counts,
+        modes["x0_zero"][2] * ROUNDS + modes["qx"][2])
+    # phase 21: configs 6 and 5 chained, in x0_seq and plant modes
+    for cfg in configs:
+        fp = cfg["tick"]._plans[cfg["tick"]._plan_key(cfg["opts"])]
+        entry = ("fused_stagewise_tick" if fp.mode == "resident"
+                 else "fused_stagewise_tick_streamed")
+        kernels[entry]["launches"] += chained_stagewise_phase(
+            tt, sk, cfg, reset_counts, probe[entry][1])
+    # phase 22: the log-depth forms against their serial forms
+    assoc_phase(tt, dev, build_fleet(BATCH, HORIZON)[0], configs[1])
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_wide)
     order = ("fused_admm_box_lanes", "fused_admm_box",

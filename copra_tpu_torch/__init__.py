@@ -6,8 +6,12 @@ lowering, QP assembly, the general ADMM solver (``solve_qp``) with its
 registry, ``solve_mpc``, the ``LMPC`` facade and the scenario batch
 (``solve_mpc_batch``), control plans with every serving step of
 ``make_plan_step`` (the accurate and f32 fused ticks on per-lane and shared
-plans, the box-only and general-row steps), and the stagewise
-Riccati-in-ADMM engine with its serving tick.  The fixed-count ADMM
+plans, the box-only and general-row steps) and its multistep chain
+(``make_plan_multistep``), the stagewise Riccati-in-ADMM engine with its
+serving tick and multistep chain (``make_stagewise_multistep``), and the
+log-depth forms (``lqr_solve_assoc``, ``condense_lti_assoc``,
+``condense_ltv_assoc``).  On a CUDA device the multistep chains run as
+CUDA graphs, their ticks free of host syncs.  The fixed-count ADMM
 iterations and the batched Cholesky run in hand-written CUDA kernels
 (``csrc/admm_box.cu``, ``csrc/admm_box_shared.cu``,
 ``csrc/admm_general_shared.cu``, ``csrc/admm_general.cu``,
@@ -30,19 +34,22 @@ from .errors import (CopraError, DimensionError, InfeasibleProblemError,
                      InitializationError, SolverError)
 from .mpc import HESSIAN_RIDGE, LMPC, MPCResult, build_qp, solve_mpc
 from .parallel.batch import solve_mpc_batch
-from .plan import (ControlPlan, auto_rho, make_control_plan, make_plan_step,
-                   make_seed_map, plan_qp, plan_trajectory, suggest_rho)
+from .plan import (ControlPlan, auto_rho, make_control_plan,
+                   make_plan_multistep, make_plan_step, make_seed_map,
+                   plan_qp, plan_trajectory, suggest_rho)
 from .qp.admm import solve_qp, solve_qp_batched
 from .qp.native import native_available, solve_qp_native
 from .qp.registry import available_solvers, get_solver, register_solver
-from .qp.riccati import (StagewiseQP, lqr_solve, make_stagewise_step,
+from .qp.riccati import (StagewiseQP, lqr_solve, lqr_solve_assoc,
+                         make_stagewise_multistep, make_stagewise_step,
                          scale_stagewise, solve_mpc_stagewise,
                          solve_stagewise, stack_stagewise, stagewise_scales)
 from .qp.types import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
                        STATUS_PRIMAL_INFEASIBLE, STATUS_SOLVED, DenseQP,
                        QPSolution, SolverOptions, WarmStart)
 from .systems import (LTISystem, LTVSystem, Preview, condense, condense_lti,
-                      condense_ltv, lti_as_ltv, replay_dynamics)
+                      condense_lti_assoc, condense_ltv, condense_ltv_assoc,
+                      lti_as_ltv, replay_dynamics)
 
 __version__ = "0.1.0"
 
@@ -52,10 +59,12 @@ __all__ = [
     "build_qp", "HESSIAN_RIDGE",
     "solve_qp", "solve_qp_batched",
     "register_solver", "get_solver", "available_solvers",
-    "ControlPlan", "make_control_plan", "make_plan_step", "make_seed_map",
+    "ControlPlan", "make_control_plan", "make_plan_step",
+    "make_plan_multistep", "make_seed_map",
     "plan_qp", "plan_trajectory", "auto_rho", "suggest_rho",
     "LTISystem", "LTVSystem", "Preview", "condense", "condense_lti",
-    "condense_ltv", "lti_as_ltv", "replay_dynamics",
+    "condense_ltv", "condense_lti_assoc", "condense_ltv_assoc",
+    "lti_as_ltv", "replay_dynamics",
     "CostFunction", "TrajectoryCost", "SimpleTrajectoryCost", "TargetCost",
     "ControlCost", "SimpleControlCost", "MixedCost",
     "Constraint", "ConstraintKind", "TrajectoryConstraint",
@@ -65,8 +74,9 @@ __all__ = [
     "STATUS_SOLVED", "STATUS_MAX_ITER", "STATUS_PRIMAL_INFEASIBLE",
     "STATUS_DUAL_INFEASIBLE",
     "native_available", "solve_qp_native",
-    "StagewiseQP", "lqr_solve", "solve_stagewise", "solve_mpc_stagewise",
-    "make_stagewise_step", "stack_stagewise", "stagewise_scales",
+    "StagewiseQP", "lqr_solve", "lqr_solve_assoc", "solve_stagewise",
+    "solve_mpc_stagewise", "make_stagewise_step",
+    "make_stagewise_multistep", "stack_stagewise", "stagewise_scales",
     "scale_stagewise",
     "span_matrix", "span_vector",
     "CopraError", "DimensionError", "InitializationError", "SolverError",

@@ -604,11 +604,20 @@ const void* kernel_of(const Config& cfg, int mode) {
              : register_kernel<kModeGeneral>(cfg.chunks);
 }
 
-// Opts the kernel into its dynamic shared memory above the default 48 KB.
-cudaError_t allow_smem(const void* fn, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// Opts a kernel into all the dynamic shared memory a block may use on the
+// current device, beside its static shared memory (once, at load: see
+// the library's prepare function, so that a launch sets nothing).
+cudaError_t allow_max_smem(const void* fn) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - static_cast<int>(a.sharedSizeBytes));
 }
 
 }  // namespace
@@ -639,6 +648,26 @@ int copra_admm_box_max_smem(int device) {
   return bytes;
 }
 
+// Sets the dynamic shared-memory attribute of every kernel of the library
+// on the current device (once a device, before the first launch).
+// Returns 0 or a CUDA error.
+int copra_admm_box_prepare() {
+  const void* fns[3 + 2 * kRegMaxChunks];
+  int k = 0;
+  fns[k++] = reinterpret_cast<const void*>(box_qx_kernel);
+  fns[k++] = reinterpret_cast<const void*>(box_streamed_kernel<kModeX0Zero>);
+  fns[k++] = reinterpret_cast<const void*>(box_streamed_kernel<kModeGeneral>);
+  for (int c = 1; c <= kRegMaxChunks; ++c) {
+    fns[k++] = register_kernel<kModeX0Zero>(c);
+    fns[k++] = register_kernel<kModeGeneral>(c);
+  }
+  for (int i = 0; i < k; ++i) {
+    const cudaError_t e = allow_max_smem(fns[i]);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
 const char* copra_admm_box_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -654,8 +683,7 @@ int copra_admm_box_attributes(int n, int mode, int refine, int body,
   const void* fn = kernel_of(cfg, mode);
   cudaFuncAttributes a;
   int per_sm = 0;
-  cudaError_t err = allow_smem(fn, cfg.smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
                                                         cfg.threads, cfg.smem);
@@ -689,10 +717,6 @@ int copra_admm_box(const float* kinv, const float* kmat, const float* c,
                  ? 1
                  : 0;
   const void* fn = kernel_of(cfg, mode);
-  {
-    const cudaError_t err = allow_smem(fn, cfg.smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   int chunks = cfg.chunks;
   void* args[] = {&kinv, &kmat, &c,  &l,  &u,      &x0,     &y0,
                   &z0,   &xo,   &yo, &zo, &go,     &n,      &chunks,

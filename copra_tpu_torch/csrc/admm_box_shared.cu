@@ -620,11 +620,20 @@ __global__ void __launch_bounds__(kMaxTileThreads, 1) box_tile_kernel(
 // Launch
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// Opts a kernel into all the dynamic shared memory a block may use on the
+// current device, beside its static shared memory (once, at load: see
+// the library's prepare function, so that a launch sets nothing).
+cudaError_t allow_max_smem(const void* fn) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - static_cast<int>(a.sharedSizeBytes));
 }
 
 struct Args {
@@ -637,8 +646,6 @@ struct Args {
 template <int G, int P>
 cudaError_t launch_small(const Args& a, const Config& cfg,
                          cudaStream_t stream) {
-  const cudaError_t err = allow_smem(box_small_kernel<G, P>, cfg.smem);
-  if (err != cudaSuccess) return err;
   const int blocks = (a.batch + cfg.lanes - 1) / cfg.lanes;
   box_small_kernel<G, P><<<blocks, kSmallThreads, cfg.smem, stream>>>(
       a.kinv, a.kmat, a.c, a.l, a.u, a.x0, a.y0, a.z0, a.xo, a.yo, a.zo,
@@ -671,8 +678,6 @@ cudaError_t launch_tile(const Args& a, const Config& cfg,
   const Tile t{a.n, cfg.lanes, cfg.threads, cfg.rows, cfg.stages,
                cfg.stage_words, round_up(a.n, 4),
                (a.n % 4 == 0 && aligned) ? 1 : 0};
-  const cudaError_t err = allow_smem(box_tile_kernel, cfg.smem);
-  if (err != cudaSuccess) return err;
   const int blocks = (a.batch + cfg.lanes - 1) / cfg.lanes;
   box_tile_kernel<<<blocks, cfg.threads, cfg.smem, stream>>>(
       a.kinv, a.kmat, a.c, a.l, a.u, a.x0, a.y0, a.z0, a.xo, a.yo, a.zo,
@@ -706,6 +711,29 @@ int copra_admm_box_shared_max_smem(int device) {
     return -1;
   }
   return bytes;
+}
+
+// Sets the dynamic shared-memory attribute of every kernel of the library
+// on the current device (once a device, before the first launch).
+// Returns 0 or a CUDA error.
+int copra_admm_box_shared_prepare() {
+  const void* fns[] = {
+      reinterpret_cast<const void*>(box_small_kernel<1, 1>),
+      reinterpret_cast<const void*>(box_small_kernel<1, 2>),
+      reinterpret_cast<const void*>(box_small_kernel<1, 3>),
+      reinterpret_cast<const void*>(box_small_kernel<1, 4>),
+      reinterpret_cast<const void*>(box_small_kernel<2, 3>),
+      reinterpret_cast<const void*>(box_small_kernel<2, 4>),
+      reinterpret_cast<const void*>(box_small_kernel<4, 3>),
+      reinterpret_cast<const void*>(box_small_kernel<4, 4>),
+      reinterpret_cast<const void*>(box_small_kernel<8, 3>),
+      reinterpret_cast<const void*>(box_small_kernel<16, 2>),
+      reinterpret_cast<const void*>(box_tile_kernel)};
+  for (const void* fn : fns) {
+    const cudaError_t e = allow_max_smem(fn);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 const char* copra_admm_box_shared_error_string(int code) {

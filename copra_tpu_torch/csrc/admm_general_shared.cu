@@ -440,11 +440,20 @@ __global__ void __launch_bounds__(32 * kWideWarps) general_wide_kernel(
 // Launch
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// Opts a kernel into all the dynamic shared memory a block may use on the
+// current device, beside its static shared memory (once, at load: see
+// the library's prepare function, so that a launch sets nothing).
+cudaError_t allow_max_smem(const void* fn) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - static_cast<int>(a.sharedSizeBytes));
 }
 
 template <int RS, int CN>
@@ -454,8 +463,6 @@ cudaError_t launch_group(const float* kinv, const float* kmat,
                          const float* z0, float* eo, float* yo, float* zo,
                          int batch, int n, int m, int n_iter, int refine,
                          Scalars s, int smem, cudaStream_t stream) {
-  const cudaError_t err = allow_smem(general_group_kernel<RS, CN>, smem);
-  if (err != cudaSuccess) return err;
   const int lanes = kGroupThreads / kGroup;
   const int blocks = (batch + lanes - 1) / lanes;
   general_group_kernel<RS, CN><<<blocks, kGroupThreads, smem, stream>>>(
@@ -517,6 +524,25 @@ int copra_admm_general_shared_max_smem(int device) {
   return bytes;
 }
 
+// Sets the dynamic shared-memory attribute of every kernel of the library
+// on the current device (once a device, before the first launch).
+// Returns 0 or a CUDA error.
+int copra_admm_general_shared_prepare() {
+#define COPRA_GROUP(RS)                                              \
+  reinterpret_cast<const void*>(general_group_kernel<RS, 4>),        \
+      reinterpret_cast<const void*>(general_group_kernel<RS, 8>),    \
+      reinterpret_cast<const void*>(general_group_kernel<RS, 12>),   \
+      reinterpret_cast<const void*>(general_group_kernel<RS, 16>)
+  const void* fns[] = {COPRA_GROUP(4), COPRA_GROUP(8), COPRA_GROUP(12),
+                       reinterpret_cast<const void*>(general_wide_kernel)};
+#undef COPRA_GROUP
+  for (const void* fn : fns) {
+    const cudaError_t e = allow_max_smem(fn);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
 const char* copra_admm_general_shared_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -546,14 +572,11 @@ int copra_admm_general_shared(const float* kinv, const float* kmat,
     err = group(cfg.cs, kinv, kmat, cmat, rho, l, u, e0, y0, z0, eo, yo, zo,
                 batch, n, m, n_iter, refine, s, cfg.smem, st);
   } else {
-    err = allow_smem(general_wide_kernel, cfg.smem);
-    if (err == cudaSuccess) {
-      const int blocks = (batch + kWideWarps - 1) / kWideWarps;
-      general_wide_kernel<<<blocks, 32 * kWideWarps, cfg.smem, st>>>(
-          kinv, kmat, cmat, rho, l, u, e0, y0, z0, eo, yo, zo, batch, n, m,
-          n_iter, refine, s, cfg.smem / kWideWarps);
-      err = cudaGetLastError();
-    }
+    const int blocks = (batch + kWideWarps - 1) / kWideWarps;
+    general_wide_kernel<<<blocks, 32 * kWideWarps, cfg.smem, st>>>(
+        kinv, kmat, cmat, rho, l, u, e0, y0, z0, eo, yo, zo, batch, n, m,
+        n_iter, refine, s, cfg.smem / kWideWarps);
+    err = cudaGetLastError();
   }
   return static_cast<int>(err);
 }

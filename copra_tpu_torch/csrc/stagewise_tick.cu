@@ -40,6 +40,15 @@
 // before it, and each sweep's first copies are issued only after the
 // barrier that ends the sweep before).
 //
+// The top-up of a served tick (solve_stagewise_fused) is decided on the
+// device: the launch takes a pointer to an "every lane converged" flag,
+// and each block reads it first and returns at once when it is set,
+// leaving the state as the wrapper handed it (the first run's, bit for
+// bit).  The host never waits for the decision, so a tick can be captured
+// in a CUDA graph.  copra_stagewise_prepare sets the dynamic shared-memory
+// attribute of every instantiation once, when the library loads, so a
+// launch sets nothing.
+//
 // Arithmetic is the plain PyTorch version's,
 // copra_tpu_torch/ops/stagewise_kernel.py::stagewise_tick_plain: the same
 // formulas, every sum with its index ascending.  The packed layout is that
@@ -229,7 +238,10 @@ stagewise_tick_kernel(const T* __restrict__ plan, const T* __restrict__ x0,
                       T* __restrict__ state, Lay L,
                       int x, int u, int r, int Cp, int Wp, int Kwp,
                       int stages, int group, int kk_resident, int nb, int N,
-                      int n_iter, T sigma, T alpha, T oma) {
+                      int n_iter, T sigma, T alpha, T oma,
+                      const int* __restrict__ skip) {
+  // the top-up of a tick whose lanes all converged: nothing to do
+  if (skip != nullptr && *skip != 0) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tile = Cp + Wp + Kwp;   // one stage: plan | warm | work
   T* ring = reinterpret_cast<T*>(smem_raw);
@@ -428,27 +440,45 @@ stagewise_tick_kernel(const T* __restrict__ plan, const T* __restrict__ x0,
 
 #undef COPRA_FOR
 
+// Opts one instantiation into all the dynamic shared memory a block may
+// use on the current device, beside its static shared memory.
+template <typename T, int M>
+cudaError_t allow_max_smem(int optin) {
+  const void* fn = reinterpret_cast<const void*>(stagewise_tick_kernel<T, M>);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - static_cast<int>(a.sharedSizeBytes));
+}
+
+template <typename T>
+cudaError_t allow_max_smem_all(int optin) {
+  cudaError_t e = allow_max_smem<T, 4>(optin);
+  if (e == cudaSuccess) e = allow_max_smem<T, 16>(optin);
+  if (e == cudaSuccess) e = allow_max_smem<T, 32>(optin);
+  if (e == cudaSuccess) e = allow_max_smem<T, 0>(optin);
+  return e;
+}
+
 template <typename T, int M>
 cudaError_t launch(const void* plan, const void* x0, void* state, int nb,
                    int N, int x, int u, int r, int n_iter, double sigma,
-                   double alpha, const RingConfig& c, cudaStream_t stream) {
-  auto kern = stagewise_tick_kernel<T, M>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, c.bytes);
-  if (e != cudaSuccess) return e;
-  kern<<<nb, c.threads, c.bytes, stream>>>(
+                   double alpha, const int* skip, const RingConfig& c,
+                   cudaStream_t stream) {
+  stagewise_tick_kernel<T, M><<<nb, c.threads, c.bytes, stream>>>(
       static_cast<const T*>(plan), static_cast<const T*>(x0),
       static_cast<T*>(state), make_layout(x, u, r), x, u, r, c.Cp, c.Wp,
       c.Kwp, c.stages, c.group, c.kk_resident, nb, N, n_iter,
       static_cast<T>(sigma), static_cast<T>(alpha),
-      static_cast<T>(1.0 - alpha));
+      static_cast<T>(1.0 - alpha), skip);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* plan, const void* x0, void* state, int nb,
                    int N, int x, int u, int r, int n_iter, double sigma,
-                   double alpha, cudaStream_t stream) {
+                   double alpha, const int* skip, cudaStream_t stream) {
   if (x < 1 || u < 1 || r < 0 || x + u + r > kMaxWidth || nb < 1 || N < 1)
     return cudaErrorInvalidValue;
   const RingConfig c = ring_config(N, x, u, r, sizeof(T));
@@ -456,16 +486,16 @@ cudaError_t launch(const void* plan, const void* x0, void* state, int nb,
   switch (c.unroll) {
     case 4:
       return launch<T, 4>(plan, x0, state, nb, N, x, u, r, n_iter,
-                          sigma, alpha, c, stream);
+                           sigma, alpha, skip, c, stream);
     case 16:
       return launch<T, 16>(plan, x0, state, nb, N, x, u, r, n_iter,
-                           sigma, alpha, c, stream);
+                           sigma, alpha, skip, c, stream);
     case 32:
       return launch<T, 32>(plan, x0, state, nb, N, x, u, r, n_iter,
-                           sigma, alpha, c, stream);
+                           sigma, alpha, skip, c, stream);
     default:
       return launch<T, 0>(plan, x0, state, nb, N, x, u, r, n_iter,
-                          sigma, alpha, c, stream);
+                          sigma, alpha, skip, c, stream);
   }
 }
 
@@ -496,20 +526,38 @@ void copra_stagewise_ring_config(int N, int x, int u, int r, int f64,
   for (int i = 0; i < 9; ++i) out[i] = v[i];
 }
 
+// Sets the dynamic shared-memory attribute of every instantiation on the
+// current device (call once a device, before the first launch).  Returns
+// 0 or a CUDA error.
+int copra_stagewise_prepare() {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = allow_max_smem_all<float>(optin);
+  if (e == cudaSuccess) e = allow_max_smem_all<double>(optin);
+  return static_cast<int>(e);
+}
+
 // n_iter iterations on lane-first padded tensors, plan [B, N+1, Cp] and
 // state [B, N+1, Wp + Kwp] (per stage the warm rows, then the work rows;
 // x0 [x, B] lane-last) on `stream`: warm is updated in place, work is
-// written whole.  Returns cudaGetLastError() (0 = launched),
+// written whole.  skip (null: never) points to an int on the device; when
+// it is non-zero every block returns at its entry and the state stays as
+// it was.  Returns cudaGetLastError() (0 = launched),
 // cudaErrorInvalidValue outside the envelope.
 int copra_stagewise_tick(const void* plan, const void* x0, void* state,
                          int nb, int N, int x, int u, int r, int n_iter,
-                         int f64, double sigma, double alpha, void* stream) {
+                         int f64, double sigma, double alpha,
+                         const void* skip, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sk = static_cast<const int*>(skip);
   return static_cast<int>(
       f64 ? launch<double>(plan, x0, state, nb, N, x, u, r, n_iter, sigma,
-                           alpha, st)
+                           alpha, sk, st)
           : launch<float>(plan, x0, state, nb, N, x, u, r, n_iter, sigma,
-                          alpha, st));
+                          alpha, sk, st));
 }
 
 }  // extern "C"

@@ -68,6 +68,7 @@ from ..qp.admm import _inf_norm, _jacobi_inverse, _polish, _tolerances
 from ..qp.types import (STATUS_MAX_ITER, STATUS_SOLVED, DenseQP, QPSolution,
                         SolverOptions)
 from .build import load_library
+from .counts import counted
 
 Tensor = torch.Tensor
 
@@ -214,6 +215,7 @@ _SIGNATURES = {
         "copra_admm_box_config": (_I, [_I, _I, _I, _I, _P]),
         "copra_admm_box_attributes": (_I, [_I, _I, _I, _I, _P]),
         "copra_admm_box_max_smem": (_I, [_I]),
+        "copra_admm_box_prepare": (_I, []),
         "copra_admm_box_error_string": (ctypes.c_char_p, [_I]),
     },
     "admm_box_shared": {
@@ -221,6 +223,7 @@ _SIGNATURES = {
                                   + [_I, _P]),
         "copra_admm_box_shared_config": (_I, [_I, _I, _P]),
         "copra_admm_box_shared_max_smem": (_I, [_I]),
+        "copra_admm_box_shared_prepare": (_I, []),
         "copra_admm_box_shared_error_string": (ctypes.c_char_p, [_I]),
     },
     "admm_general_shared": {
@@ -228,6 +231,7 @@ _SIGNATURES = {
                                       + [_I, _P]),
         "copra_admm_general_shared_config": (_I, [_I, _I, _I, _P]),
         "copra_admm_general_shared_max_smem": (_I, [_I]),
+        "copra_admm_general_shared_prepare": (_I, []),
         "copra_admm_general_shared_error_string": (ctypes.c_char_p, [_I]),
     },
     "admm_general": {
@@ -291,9 +295,19 @@ _smem_limits = {}
 
 def _max_smem(lib, sym: str, dev) -> int:
     """``lib.<sym>(dev.index)``, the dynamic shared memory a block may opt
-    into on ``dev``, queried once per library and device."""
+    into on ``dev``, queried once per library and device.  The first query
+    also runs the library's ``..._prepare`` on ``dev``, which opts every
+    kernel into that memory, so that no launch sets an attribute (a
+    captured launch is one kernel node)."""
     key = (sym, dev.index)
     if key not in _smem_limits:
+        prep = sym.replace("_max_smem", "_prepare")
+        with torch.cuda.device(dev):
+            rc = getattr(lib, prep)()
+        if rc != 0:
+            msg = getattr(lib, sym.replace("_max_smem", "_error_string"))(
+                rc).decode()
+            raise RuntimeError(f"{prep} failed: CUDA error {rc} ({msg})")
         _smem_limits[key] = getattr(lib, sym)(dev.index)
     return _smem_limits[key]
 
@@ -387,6 +401,8 @@ def _box_lanes_attributes(n: int, mode: int, refine: int = 0,
     (``cudaFuncGetAttributes``, the occupancy calculator)."""
     box_lanes_config(n, mode, refine, body)
     lib = _load("admm_box")
+    _max_smem(lib, "copra_admm_box_max_smem",
+              torch.device("cuda", torch.cuda.current_device()))
     out = (ctypes.c_int * 4)()
     _raise_on(lib.copra_admm_box_attributes(
         n, mode, refine, BOX_LANES_BODIES.get(body, 0), out), lib,
@@ -429,6 +445,7 @@ def _launch(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma, alpha, rho,
     return tuple(outs)
 
 
+@counted
 def fused_admm_box_lanes(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor,
                          u: Tensor, x0: Tensor, y0: Tensor, z0: Tensor, *,
                          n_iter: int, sigma: float, alpha: float, rho: float,
@@ -450,6 +467,7 @@ def fused_admm_box_lanes(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor,
     return out
 
 
+@counted
 def fused_admm_box(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor, u: Tensor,
                    x0: Tensor, y0: Tensor, z0: Tensor, *, n_iter: int,
                    sigma: float, alpha: float, rho: float, refine: int = 1
@@ -575,6 +593,7 @@ def _launch_box_shared(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma,
     return tuple(outs)
 
 
+@counted
 def fused_admm_box_shared(Kinv: Tensor, K: Tensor, c: Tensor, l: Tensor,
                           u: Tensor, x0: Tensor, y0: Tensor, z0: Tensor, *,
                           n_iter: int, sigma: float, alpha: float,
@@ -697,6 +716,7 @@ def _launch_general_shared(Kinv, K, C, rho_vec, l, u, e0, y0, z0, *,
     return outs
 
 
+@counted
 def fused_admm_general_shared(Kinv: Tensor, K: Tensor, C: Tensor,
                               rho_vec: Tensor, l: Tensor, u: Tensor,
                               e0: Tensor, y0: Tensor, z0: Tensor, *,
@@ -823,6 +843,7 @@ def _launch_general(Kinv, C, c, l, u, rho, x0, y0, z0, *, n_iter, sigma,
     return outs
 
 
+@counted
 def fused_admm_general(Kinv: Tensor, C: Tensor, c: Tensor, l: Tensor,
                        u: Tensor, rho: Tensor, x0: Tensor, y0: Tensor,
                        z0: Tensor, *, n_iter: int, sigma: float,
@@ -908,10 +929,3 @@ def solve_qp_batched_fused(qp: DenseQP, options=None, warm_start=None
     iters = torch.full((B,), options.max_iter, dtype=torch.int32, device=dev)
     return QPSolution(x=x, y=y, z=z, status=status, iterations=iters,
                       primal_residual=r_prim, dual_residual=r_dual)
-
-
-fused_admm_box_lanes.launches = 0
-fused_admm_box.launches = 0
-fused_admm_box_shared.launches = 0
-fused_admm_general_shared.launches = 0
-fused_admm_general.launches = 0

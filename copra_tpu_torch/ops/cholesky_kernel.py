@@ -39,6 +39,7 @@ import torch
 
 from ..qp.admm import _cholesky
 from .build import load_library
+from .counts import counted
 
 Tensor = torch.Tensor
 
@@ -185,6 +186,7 @@ def _launch_chol(K: Tensor, body: str = "auto") -> Tensor:
     return L
 
 
+@counted
 def chol_batched(K: Tensor) -> Tensor:
     """Lower Cholesky factors ``L [B, n, n]`` (``L L' = K``) of a batch of
     small SPD matrices ``K [B, n, n]``, float32 or float64; only the lower
@@ -207,6 +209,3 @@ def chol_batched(K: Tensor) -> Tensor:
     L = _launch_chol(K)
     chol_batched.launches += 1
     return L
-
-
-chol_batched.launches = 0

@@ -40,6 +40,7 @@ import torch
 from .._precision import highest_precision
 from .._tensors import matvec as _mv, matvec_t as _mtv
 from .build import load_library
+from .counts import counted
 
 Tensor = torch.Tensor
 
@@ -47,8 +48,8 @@ MAX_WIDTH = 128          # x + u + r, the reference's streamed-mode limit
 SMEM_LIMIT = 232448      # shared memory one H100 block may use (227 KB)
 MAX_STAGES = 8           # stage tiles in the kernel's ring, at most
 
-_POLISH = ("options.polish_iters > 0 needs the df32 -> f64 polish, which "
-           "is not yet ported (ROADMAP item 8)")
+_POLISH = ("options.polish_iters > 0 needs the f64 polish, which is not "
+           "yet ported (ROADMAP queue 1, the f64 polish)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,7 +175,9 @@ class _Layout:
 
 def stagewise_tick_plain(plan: Tensor, x0: Tensor, warm: Tensor, *,
                          n_iter: int, N: int, x: int, u: int, r: int,
-                         sigma: float, alpha: float
+                         sigma: float, alpha: float,
+                         work: Optional[Tensor] = None,
+                         skip: Optional[Tensor] = None
                          ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of one fixed-count tick on the packed tensors.
 
@@ -185,8 +188,19 @@ def stagewise_tick_plain(plan: Tensor, x0: Tensor, warm: Tensor, *,
     B u`` and, stage by stage, relaxes by ``alpha``, projects ``x`` (stage
     0 pinned to ``x0``), ``u`` and the rows and updates their duals; the
     terminal state's projection comes last.  Returns ``(warm', work)``.
+
+    ``skip`` (with ``work``, the state of a tick before): a one-element
+    int32 flag; when it is non-zero the tick is skipped and ``(warm,
+    work)`` come back unchanged, as the kernel returns at its entry (the
+    top-up of a tick whose lanes all converged).  Here the flag is read on
+    the host.
     """
     lo = _Layout(x, u, r)
+    if skip is not None:
+        if work is None:
+            raise ValueError("skip needs the work tensor it keeps")
+        if bool(skip):
+            return warm.clone(), work.clone()
     oma = 1.0 - alpha
     tiny = 1e-30
     warm = warm.clone()
@@ -302,7 +316,10 @@ def _load() -> ctypes.CDLL:
     lib = load_library("stagewise_tick")
     p, i, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.copra_stagewise_tick.restype = i
-    lib.copra_stagewise_tick.argtypes = [p] * 3 + [i] * 7 + [dbl] * 2 + [p]
+    lib.copra_stagewise_tick.argtypes = ([p] * 3 + [i] * 7 + [dbl] * 2
+                                         + [p] * 2)
+    lib.copra_stagewise_prepare.restype = i
+    lib.copra_stagewise_prepare.argtypes = []
     lib.copra_stagewise_layout.restype = None
     lib.copra_stagewise_layout.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.copra_stagewise_ring_config.restype = None
@@ -393,11 +410,33 @@ def lane_first_plan(plan: Tensor) -> Tensor:
                                        16 // plan.element_size()))
 
 
+_prepared = set()
+
+
+def _prepare(lib, dev) -> None:
+    """Opt every instantiation of the kernel into the dynamic shared
+    memory it may use, once per device, so that a launch sets nothing (a
+    captured launch is one kernel node)."""
+    if dev.index in _prepared:
+        return
+    with torch.cuda.device(dev):
+        rc = lib.copra_stagewise_prepare()
+    if rc != 0:
+        raise RuntimeError(
+            f"stagewise tick kernel: setting its shared-memory attribute "
+            f"failed: CUDA error {rc} "
+            f"({lib.copra_stagewise_error_string(rc).decode()})")
+    _prepared.add(dev.index)
+
+
 def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
-            plan_lf=None):
+            plan_lf=None, work=None, skip=None):
     """Check the lane-last tensors, make the kernel's lane-first copies
     (``plan_lf`` if given, and the state: warm | work per stage), launch
-    it and return ``(warm', work)`` lane-last again."""
+    it and return ``(warm', work)`` lane-last again.  With ``skip`` (a
+    one-element int32 flag on the device) the state also takes ``work``,
+    and the kernel returns at its entry when the flag is set, leaving
+    ``(warm, work)`` as given."""
     if n_iter < 0 or N < 1:
         raise ValueError(f"n_iter must be >= 0 and N >= 1, got {n_iter}, "
                          f"{N}")
@@ -427,14 +466,30 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
           or not plan_lf.is_contiguous()):
         raise ValueError(f"plan_lf must be lane_first_plan(plan), a "
                          f"contiguous {dt} [{nb}, {N + 1}, {Cp}] on {dev}")
+    if skip is not None:
+        if work is None:
+            raise ValueError("skip needs the work tensor it keeps")
+        if (skip.device != dev or skip.dtype != torch.int32
+                or skip.numel() != 1):
+            raise ValueError(f"skip must be a one-element int32 tensor on "
+                             f"{dev}, got {skip.dtype} {tuple(skip.shape)} "
+                             f"on {skip.device}")
+        if tuple(work.shape) != (N + 1, lo.Kw, nb) or work.dtype != dt:
+            raise ValueError(f"work must be a {dt} [{N + 1}, {lo.Kw}, "
+                             f"{nb}] tensor, got {work.dtype} "
+                             f"{tuple(work.shape)}")
     lib = _load()
+    _prepare(lib, dev)
     with torch.cuda.device(dev):
         state = torch.empty((nb, N + 1, Wp + Kwp), dtype=dt, device=dev)
         state[:, :, :lo.W] = warm.permute(2, 0, 1)
+        if skip is not None:
+            state[:, :, Wp:Wp + lo.Kw] = work.permute(2, 0, 1)
         rc = lib.copra_stagewise_tick(
             plan_lf.data_ptr(), x0.data_ptr(), state.data_ptr(), nb, N, x, u,
             r, int(n_iter), int(dt == torch.float64), float(sigma),
-            float(alpha), torch.cuda.current_stream(dev).cuda_stream)
+            float(alpha), None if skip is None else skip.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"stagewise tick kernel launch failed: CUDA error {rc} "
@@ -442,10 +497,13 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
     return _lane_last(state, lo.W), _lane_last(state[:, :, Wp:], lo.Kw)
 
 
+@counted
 def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
                          n_iter: int, N: int, x: int, u: int, r: int,
                          sigma: float, alpha: float,
-                         plan_lf: Optional[Tensor] = None
+                         plan_lf: Optional[Tensor] = None,
+                         work: Optional[Tensor] = None,
+                         skip: Optional[Tensor] = None
                          ) -> Tuple[Tensor, Tensor]:
     """Run ``n_iter`` stagewise-ADMM iterations in one kernel (the resident
     entry point: small per-stage dimensions, the N=300 ZMP class).
@@ -455,9 +513,13 @@ def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
     ``work [N+1, Kw, B]`` carries the final LQR iterates ``X``/``U``.
     CPU tensors run :func:`stagewise_tick_plain`; CUDA tensors launch
     ``csrc/stagewise_tick.cu`` (see :func:`_launch`), on ``plan_lf``
-    (:func:`lane_first_plan`) where the caller holds one.
+    (:func:`lane_first_plan`) where the caller holds one.  ``skip`` and
+    ``work``: the device-side top-up decision (see
+    :func:`stagewise_tick_plain`); the launch happens, and counts, whether
+    or not the flag is set.
     """
-    kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha)
+    kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha,
+              work=work, skip=skip)
     if plan.device.type == "cpu":
         return stagewise_tick_plain(plan, x0, warm, **kw)
     out = _launch(plan, x0, warm, **kw, plan_lf=plan_lf)
@@ -465,24 +527,24 @@ def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
     return out
 
 
+@counted
 def fused_stagewise_tick_streamed(plan: Tensor, x0: Tensor, warm: Tensor,
                                   *, n_iter: int, N: int, x: int, u: int,
                                   r: int, sigma: float, alpha: float,
-                                  plan_lf: Optional[Tensor] = None
+                                  plan_lf: Optional[Tensor] = None,
+                                  work: Optional[Tensor] = None,
+                                  skip: Optional[Tensor] = None
                                   ) -> Tuple[Tensor, Tensor]:
     """The streamed entry point (robot-scale per-stage dimensions, the
     x = u = r = 12 quadruped class): the same kernel and arguments as
     :func:`fused_stagewise_tick`, counted apart."""
-    kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha)
+    kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha,
+              work=work, skip=skip)
     if plan.device.type == "cpu":
         return stagewise_tick_plain(plan, x0, warm, **kw)
     out = _launch(plan, x0, warm, **kw, plan_lf=plan_lf)
     fused_stagewise_tick_streamed.launches += 1
     return out
-
-
-fused_stagewise_tick.launches = 0
-fused_stagewise_tick_streamed.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -642,7 +704,8 @@ def _lane_residuals(sqp, options, rho_x: Tensor, rho_u: Tensor, rows, X, U,
     where a split exists, row gaps and the dual residual in the original
     row metric, against ``10 max(eps_abs, 25 eps(dtype))`` (the dual one
     relative to ``_dual_scale``); shared by the status of both paths
-    and the top-up check."""
+    and the top-up check.  The dual residual is the log-depth scan
+    (``parallel=True``), as in the reference's status pass."""
     from ..qp.riccati import _dual_scale, _lane_max, stagewise_dual_residual
 
     zero = torch.zeros((), dtype=sqp.A.dtype, device=sqp.A.device)
@@ -652,9 +715,10 @@ def _lane_residuals(sqp, options, rho_x: Tensor, rho_u: Tensor, rows, X, U,
     if rows is not None:
         r_prim = torch.maximum(r_prim, _lane_max(
             ((rows.eval(X, U) - zS) / rows.Es).abs()))
-        r_dual = stagewise_dual_residual(sqp, X, U, yX, yU, yS * rows.Es)
+        r_dual = stagewise_dual_residual(sqp, X, U, yX, yU, yS * rows.Es,
+                                         parallel=True)
     else:
-        r_dual = stagewise_dual_residual(sqp, X, U, yX, yU)
+        r_dual = stagewise_dual_residual(sqp, X, U, yX, yU, parallel=True)
     eps = max(options.eps_abs, 25.0 * torch.finfo(sqp.A.dtype).eps) * 10
     return r_prim, r_dual, (r_prim <= eps) & (r_dual <= eps * _dual_scale(sqp))
 
@@ -669,7 +733,12 @@ def solve_stagewise_fused(sqp, options, warm_start=None,
     gains work; serving callers hold one per problem and tick with a fresh
     ``x0``.  With ``options.topup_iters`` the whole batch runs that many
     more iterations when any lane's delivered residuals miss the
-    tolerance (one host-side check per tick).
+    tolerance.  That decision stays on the device: the top-up launch
+    always happens, on a state that holds the first run's warm and work
+    rows, and returns at its entry when every lane converged, so the first
+    run's values come back bit for bit and no tick syncs the host (a tick
+    can be captured in a CUDA graph).  The residuals are taken again after
+    it, as the reference does after its ``lax.cond``.
     """
     from ..qp.riccati import _initial_state, _lead, _result
 
@@ -692,10 +761,11 @@ def solve_stagewise_fused(sqp, options, warm_start=None,
     entry = (fused_stagewise_tick if fp.mode == "resident"
              else fused_stagewise_tick_streamed)
 
-    def run(warm_t, n_iter):
+    def run(warm_t, n_iter, work_t=None, skip=None):
         return entry(fp.plan, x0, warm_t, n_iter=n_iter, N=N, x=x, u=u,
                      r=r, sigma=float(options.sigma),
-                     alpha=float(options.alpha), plan_lf=fp.plan_lf)
+                     alpha=float(options.alpha), plan_lf=fp.plan_lf,
+                     work=work_t, skip=skip)
 
     def take(t, off, c, stages=N + 1):
         return t[:stages, off:off + c].permute(2, 0, 1)
@@ -715,9 +785,12 @@ def solve_stagewise_fused(sqp, options, warm_start=None,
     vals = unpack(warm1, work)
     res = residuals(vals)
     topup = int(getattr(options, "topup_iters", 0))
-    if topup > 0 and not bool(res[2].all()):
-        # batch-level top-up: converged lanes sit at their fixed point
-        vals = unpack(*run(warm1, topup))
+    if topup > 0:
+        # batch-level top-up, skipped on the device when every lane
+        # converged; converged lanes of a tick that runs it sit at their
+        # fixed point
+        skip = res[2].all().to(torch.int32)
+        vals = unpack(*run(warm1, topup, work, skip))
         res = residuals(vals)
     iters = torch.full((nb,), int(options.max_iter), dtype=torch.int32,
                        device=sqp.A.device)

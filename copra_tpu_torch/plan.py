@@ -12,8 +12,9 @@ Ported here: :class:`ControlPlan`, :func:`make_control_plan`,
 :func:`make_plan_step`: the accurate tick (per-lane and shared operators),
 the f32 fused tick, the box-only and general-row steps (batched and
 unbatched) and the general tick through the shared general kernel, with the
-general path's ``polish`` through ``qp/admm``'s ``_polish``.  Not ported
-yet: ``make_plan_multistep``.
+general path's ``polish`` through ``qp/admm``'s ``_polish``, and
+:func:`make_plan_multistep`, which serves T accurate ticks per call, on a
+CUDA plan as one CUDA graph.
 
 Where the reference vmaps over a fleet, the port takes a batch dimension:
 ``make_control_plan`` of an :class:`LTVSystem` whose ``A`` is
@@ -39,6 +40,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ._graph import CapturedChain, tree_map
 from ._precision import highest_precision
 from ._tensors import as_tensor, common, matvec, matvec_t
 from .constraints import Constraint
@@ -449,6 +451,8 @@ def _make_accurate_step(plan: ControlPlan, options: SolverOptions,
     def step(plan_b, x0_b, warm_b):
         return acc_step(plan_b, Kinv_pre, K_pre, seed_map, x0_b, warm_b)
 
+    # the inner tick and its precomputed state, for make_plan_multistep
+    step.acc_step = acc_step
     step.state = (Kinv_pre, K_pre, seed_map)
     return step
 
@@ -742,3 +746,73 @@ def make_plan_step(plan: ControlPlan,
         return _make_box_step(plan, options, seed_center, batched)
     gen_fused = explicit_fused and batched and plan.Q.dim() == 2 and f32_plan
     return _make_general_step(plan, options, seed_center, batched, gen_fused)
+
+
+def make_plan_multistep(plan: ControlPlan,
+                        options: SolverOptions = SolverOptions(),
+                        seed_center=None,
+                        accurate: bool = True,
+                        accurate_rounds: int = 1,
+                        use_fused=None):
+    """T accurate ticks per call for a batched box-only plan:
+    ``step_many(x0_seq [T, B, x], warm=None) -> (U [T, B, n], statuses [T,
+    B], dual_residuals [T, B], warm)``, tick ``t`` solving at
+    ``x0_seq[t]`` from the warm state tick ``t - 1`` left; ``warm=None``
+    starts from zero duals, as the per-tick step's ``None`` does.
+
+    On a CUDA plan the T ticks are one CUDA graph, captured on the first
+    call of each ``(T, B, dtype of x0_seq)`` and replayed after: per-lane
+    plans run the x0 = 0 body of :func:`fused_admm_box_lanes` and its Q x
+    pass, shared plans :func:`fused_admm_box_shared`, and the host issues
+    one graph launch a call instead of every tick's launches.  The
+    returned tensors are the call's own (clones of the graph's outputs,
+    which the next call overwrites).  On the CPU the ticks run eagerly in
+    a loop.
+    """
+    step = make_plan_step(plan, options, batched=True,
+                          seed_center=seed_center, accurate=accurate,
+                          accurate_rounds=accurate_rounds,
+                          use_fused=use_fused)
+    inner = getattr(step, "acc_step", None)
+    if inner is None:
+        raise ValueError(
+            "make_plan_multistep currently supports the batched ACCURATE "
+            "path (box-only plans, accurate=True) — use "
+            "make_stagewise_multistep for stagewise fleets or the "
+            "per-tick step for other plan paths.")
+    Kinv_pre, K_pre, seed_map = step.state
+    dev = plan.Q.device
+    chains = {}
+
+    def ticks(x0_seq: Tensor, wy: Tensor):
+        # the accurate tick reads only the duals of its warm state
+        w = WarmStart(x=wy, y=wy, z=wy)
+        us, statuses, rds = [], [], []
+        for t in range(x0_seq.shape[0]):
+            u, sol, w = inner(plan, Kinv_pre, K_pre, seed_map, x0_seq[t], w)
+            us.append(u)
+            statuses.append(sol.status)
+            rds.append(sol.dual_residual)
+        return (torch.stack(us), torch.stack(statuses), torch.stack(rds),
+                w)
+
+    def step_many(x0_seq, warm: Optional[WarmStart] = None):
+        x0_seq = as_tensor(x0_seq, dev)
+        if x0_seq.dim() != 3 or x0_seq.shape[0] < 1:
+            raise ValueError(f"x0_seq must be [T, B, x] with T >= 1, got "
+                             f"{tuple(x0_seq.shape)}")
+        bsz, n = x0_seq.shape[1], plan.Q.shape[-1]
+        wy = (torch.zeros((bsz, n), dtype=torch.float32, device=dev)
+              if warm is None else warm.y.to(device=dev,
+                                              dtype=torch.float32))
+        if dev.type != "cuda":
+            return ticks(x0_seq, wy)
+        key = (tuple(x0_seq.shape), x0_seq.dtype)
+        chain = chains.get(key)
+        if chain is None:
+            chain = chains[key] = CapturedChain(ticks, (x0_seq, wy),
+                                                "make_plan_multistep")
+        return tree_map(torch.clone, chain(x0_seq, wy))
+
+    step_many.chains = chains
+    return step_many

@@ -14,13 +14,17 @@ Where the reference vmaps one problem over a fleet, the port writes the
 lane axis out: every function here takes one problem (``A [N, x, x]``) or a
 batch (``A [B, N, x, x]``), and a batched early-exit solve stops each lane
 at its own convergence, as the vmapped ``lax.while_loop`` does.  The
-sweeps are Python loops over stages, batched over lanes.
+serial sweeps are Python loops over stages, batched over lanes; the
+log-depth forms (:func:`lqr_solve_assoc`, ``parallel_scan=True``, the
+parallel dual residual) run :func:`~copra_tpu_torch._scan.associative_scan`.
+:func:`make_stagewise_multistep` serves a chain of ticks, on a CUDA device
+as one CUDA graph.
 
-Not ported here: ``lqr_solve_assoc`` (``parallel_scan=True`` raises,
-ROADMAP item 11), ``auto_rho_stagewise``/``auto_iters_stagewise``,
-``make_stagewise_server`` and ``make_stagewise_multistep``.  Dropped:
-``warn_if_emulated_f64`` (the H100 has FP64), the module-level jit caches
-and their ``TICK_TRACE_COUNTERS`` (PyTorch runs eagerly).
+Not ported here: ``auto_rho_stagewise``/``auto_iters_stagewise`` and
+``make_stagewise_server``.  Dropped: ``warn_if_emulated_f64`` (the H100 has
+FP64), the module-level jit caches and their ``TICK_TRACE_COUNTERS``
+(PyTorch runs eagerly; the multistep chain keeps one graph per chain
+length).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from .._precision import highest_precision
+from .._scan import affine_combine, associative_scan
 from .._tensors import (common, matvec as _mv, matvec_t as _mtv,
                         resolve_device)
 from ..constraints import (Constraint, ControlBoundConstraint,
@@ -46,10 +51,6 @@ from .types import (STATUS_MAX_ITER, STATUS_PRIMAL_INFEASIBLE,
                     STATUS_SOLVED, QPSolution, SolverOptions)
 
 Tensor = torch.Tensor
-
-_PARALLEL_SCAN = ("parallel_scan=True needs lqr_solve_assoc (the log-depth "
-                  "Riccati scan), which is not yet ported (ROADMAP item 11)")
-
 
 @dataclasses.dataclass(frozen=True)
 class StagewiseQP:
@@ -107,6 +108,21 @@ def _ein(eq: str, *ts) -> Tensor:
     """``einsum`` in the promoted dtype of its operands (as ``jnp.einsum``
     promotes; torch requires one dtype)."""
     return torch.einsum(eq, *common(*ts, device=ts[0].device))
+
+
+# Products of stage-batched blocks by vectors as one elementwise product
+# and a sum: a batched GEMV of small blocks ([B, N, x, x] with x of a few
+# units) costs the card ~0.1 ms a call whatever its size (measured on the
+# H100 in config 5's status pass), an elementwise pass a few us; the
+# intermediate is the block's size.
+def _smv(M: Tensor, v: Tensor) -> Tensor:
+    """``M v`` over the trailing dims."""
+    return (M * v.unsqueeze(-2)).sum(-1)
+
+
+def _smtv(M: Tensor, v: Tensor) -> Tensor:
+    """``M' v`` over the trailing dims."""
+    return (M * v.unsqueeze(-1)).sum(-2)
 
 
 def _lane_max(t: Tensor) -> Tensor:
@@ -400,6 +416,110 @@ def lqr_solve(A: Tensor, B: Tensor, d: Tensor, Qx: Tensor, qx: Tensor,
     return torch.stack(X, dim=-2), torch.stack(U, dim=-2)
 
 
+def _solve(M: Tensor, R: Tensor) -> Tensor:
+    """``M^{-1} R`` without the error check (and its host sync) of
+    ``torch.linalg.solve``: a singular ``M`` gives non-finite values, as
+    in the reference."""
+    return torch.linalg.solve_ex(M, R)[0]
+
+
+def _inv(M: Tensor) -> Tensor:
+    return torch.linalg.inv_ex(M)[0]
+
+
+def _interval_combine(ei, ej):
+    """Compose the value-function intervals ``ei`` (earlier) and ``ej``
+    (later), each the 5-tuple ``(A, b, C, J, eta)`` of
+    :func:`lqr_solve_assoc`."""
+    A1, b1, C1, J1, h1 = ei
+    A2, b2, C2, J2, h2 = ej
+    eye = torch.eye(A1.shape[-1], dtype=A1.dtype, device=A1.device)
+    M1 = _inv(eye + C1 @ J2)
+    M2 = _inv(eye + J2 @ C1)
+    A2M1 = A2 @ M1
+    return (A2M1 @ A1,
+            _mv(A2M1, b1 + _mv(C1, h2)) + b2,
+            A2M1 @ C1 @ A2.mT + C2,
+            A1.mT @ M2 @ J2 @ A1 + J1,
+            _mtv(A1, _mv(M2, h2 - _mv(J2, b1))) + h1)
+
+
+@highest_precision
+def lqr_solve_assoc(A: Tensor, B: Tensor, d: Tensor, Qx: Tensor,
+                    qx: Tensor, Ru: Tensor, ru: Tensor, x0: Tensor,
+                    S: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Log-depth LQ solve: the same problem, signature and result as
+    :func:`lqr_solve`, by two associative scans in place of the serial
+    sweeps (leading batch dims allowed).
+
+    The conditional value functions over stage intervals compose
+    associatively.  An interval is the 5-tuple ``(A, b, C, J, eta)``:
+    travelling ``x -> y`` costs ``1/2 x'Jx - eta'x`` plus the least control
+    effort ``1/2 s' C^+ s`` for the displacement ``s = y - Ax - b``
+    (``C = B R^{-1} B'``).  The combine (earlier ``i``, later ``j``) is::
+
+        M   = (I + C_i J_j)^{-1}
+        A   = A_j M A_i
+        b   = A_j M (b_i + C_i eta_j) + b_j
+        C   = A_j M C_i A_j' + C_j
+        eta = A_i' (I + J_j C_i)^{-1} (eta_j - J_j b_i) + eta_i
+        J   = A_i' (I + J_j C_i)^{-1} J_j A_i + J_i
+
+    The value functions come from one reverse scan, the gains from them
+    stage by stage at once, and the closed-loop rollout from a second,
+    affine, scan.  Cross costs ``S [N, x, u]`` are eliminated first by
+    completing the square (``u = u~ - R^{-1} S' x``): ``A~ = A - B R^{-1}
+    S'``, ``Qx~ = Qx - S R^{-1} S'``, ``qx~ = qx - S R^{-1} ru``.
+    """
+    x = A.shape[-1]
+    batch = torch.broadcast_shapes(
+        A.shape[:-3], B.shape[:-3], d.shape[:-2], Qx.shape[:-3],
+        qx.shape[:-2], Ru.shape[:-3], ru.shape[:-2], x0.shape[:-1],
+        () if S is None else S.shape[:-3])
+    A, B, d, Qx, qx, Ru, ru = (
+        t.expand(*batch, *t.shape[-k:]) for t, k in
+        ((A, 3), (B, 3), (d, 2), (Qx, 3), (qx, 2), (Ru, 3), (ru, 2)))
+    x0 = x0.expand(*batch, x)
+    if S is not None:
+        S = S.expand(*batch, *S.shape[-3:])
+        RinvSt = _solve(Ru, S.mT)                            # [.., N, u, x]
+        Rinv_r = _solve(Ru, ru.unsqueeze(-1)).squeeze(-1)    # [.., N, u]
+        Qx_t = torch.cat([Qx[..., :-1, :, :] - S @ RinvSt,
+                          Qx[..., -1:, :, :]], dim=-3)
+        qx_t = torch.cat([qx[..., :-1, :] - _mv(S, Rinv_r),
+                          qx[..., -1:, :]], dim=-2)
+        X, U_t = lqr_solve_assoc(A - B @ RinvSt, B, d, Qx_t, qx_t, Ru, ru,
+                                 x0)
+        return X, U_t - _mv(RinvSt, X[..., :-1, :])
+    sd = len(batch)
+    kd = dict(dtype=A.dtype, device=A.device)
+    # per-stage intervals; the linear control cost ru is absorbed by the
+    # least-norm shift u -> u + R^{-1} ru
+    Rinv_ru = _solve(Ru, ru.unsqueeze(-1)).squeeze(-1)
+    BRB = B @ _inv(Ru) @ B.mT
+    elems = (
+        torch.cat([A, torch.eye(x, **kd).expand(*batch, 1, x, x)], dim=-3),
+        torch.cat([d - _mv(B, Rinv_ru), torch.zeros(*batch, 1, x, **kd)],
+                  dim=-2),
+        torch.cat([BRB, torch.zeros(*batch, 1, x, x, **kd)], dim=-3),
+        Qx, -qx)
+    # the reverse scan hands (later suffix, earlier stage); the combine
+    # takes (earlier, later)
+    suffix = associative_scan(lambda a, b: _interval_combine(b, a), elems,
+                              dim=sd, reverse=True)
+    Vn, vn = suffix[3][..., 1:, :, :], -suffix[4][..., 1:, :]
+    BtV = B.mT @ Vn
+    Rb = Ru + BtV @ B
+    Ks = -_solve(Rb, BtV @ A)
+    ks = -_solve(Rb, (ru + _mtv(B, vn + _mv(Vn, d))).unsqueeze(-1)
+                 ).squeeze(-1)
+    Mp, cp = associative_scan(affine_combine, (A + B @ Ks, _mv(B, ks) + d),
+                              dim=sd)
+    X = torch.cat([x0.unsqueeze(-2), _mv(Mp, x0.unsqueeze(-2)) + cp],
+                  dim=-2)
+    return X, _mv(Ks, X[..., :-1, :]) + ks
+
+
 def _box_penalties(lb: Tensor, ub: Tensor, rho: float) -> Tensor:
     """Per-coordinate penalty: ``rho`` where a finite bound exists, else 0
     (no consensus split on an unbounded coordinate)."""
@@ -422,8 +542,7 @@ class _Rows(NamedTuple):
 
     def eval(self, X: Tensor, U: Tensor) -> Tensor:
         """``Cx x_k + Cu u_k`` in the normalized metric."""
-        return (torch.einsum("bkrx,bkx->bkr", self.Cx, X[:, :-1])
-                + torch.einsum("bkru,bku->bkr", self.Cu, U))
+        return _smv(self.Cx, X[:, :-1]) + _smv(self.Cu, U)
 
 
 def _penalized(sqp: StagewiseQP, options: SolverOptions, rho_x: Tensor,
@@ -549,9 +668,12 @@ def solve_stagewise(sqp: StagewiseQP,
     own convergence.  Both loop modes report primal-infeasibility
     certificates from the dual-delta directions, and crossed bounds report
     ``STATUS_PRIMAL_INFEASIBLE`` directly.
+
+    ``parallel_scan=True`` runs every LQ solve (the seed sweep and each
+    iteration's w-update, with the ridged stage Hessians and the rows'
+    cross term) through :func:`lqr_solve_assoc` in place of the serial
+    sweeps with precomputed gains.
     """
-    if parallel_scan:
-        raise NotImplementedError(_PARALLEL_SCAN)
     from ..ops.stagewise_kernel import (_lane_residuals, lqr_solve_fixed,
                                         precompute_lqr_gains)
 
@@ -571,11 +693,14 @@ def solve_stagewise(sqp: StagewiseQP,
     rho_x_safe, rho_u_safe = rho_x.clamp_min(1e-30), rho_u.clamp_min(1e-30)
     box_x, box_u = rho_x > 0, rho_u > 0
     Qx_r, Ru_r, S_cross, rows = _penalized(sqp, options, rho_x, rho_u)
-    gains_r = precompute_lqr_gains(sqp.A, sqp.B, sqp.d, Qx_r, Ru_r, S_cross)
+    sweep = lqr_solve_assoc if parallel_scan else lqr_solve
+    if not parallel_scan:
+        gains_r = precompute_lqr_gains(sqp.A, sqp.B, sqp.d, Qx_r, Ru_r,
+                                       S_cross)
     warm0 = _initial_state(
         sqp, options, warm_start, rows,
-        lambda: lqr_solve(sqp.A, sqp.B, sqp.d, sqp.Qx, sqp.qx, sqp.Ru,
-                          sqp.ru, sqp.x0))
+        lambda: sweep(sqp.A, sqp.B, sqp.d, sqp.Qx, sqp.qx, sqp.Ru, sqp.ru,
+                      sqp.x0))
 
     def one_iter(carry):
         zX, zU, yX, yU, zS, yS, wX, wU = carry
@@ -586,8 +711,12 @@ def solve_stagewise(sqp: StagewiseQP,
             qx_k = torch.cat([qx_k[:, :-1] - torch.einsum(
                 "bkrx,bkr->bkx", rows.Cx, vS), qx_k[:, -1:]], dim=1)
             ru_k = ru_k - torch.einsum("bkru,bkr->bku", rows.Cu, vS)
-        X, U = lqr_solve_fixed(gains_r, sqp.A, sqp.B, sqp.d, qx_k, ru_k,
-                               sqp.x0)
+        if parallel_scan:
+            X, U = lqr_solve_assoc(sqp.A, sqp.B, sqp.d, Qx_r, qx_k, Ru_r,
+                                   ru_k, sqp.x0, S=S_cross)
+        else:
+            X, U = lqr_solve_fixed(gains_r, sqp.A, sqp.B, sqp.d, qx_k, ru_k,
+                                   sqp.x0)
         Xr = alpha * X + oma * zX
         Ur = alpha * U + oma * zU
         zX_n = torch.where(box_x, torch.clamp(Xr + yX / rho_x_safe,
@@ -737,10 +866,12 @@ def stagewise_dual_residual(sqp: StagewiseQP, X: Tensor, U: Tensor,
         lam_k = Qx_k x_k + qx_k + A_k' lam_{k+1} + yX_k [+ Cx_k' yS_k]
 
     leaving ``r_k = Ru_k u_k + ru_k + B_k' lam_{k+1} + yU_k [+ Cu_k' yS_k]``;
-    returns ``max |r|`` (per lane of a batch).  The reference's
-    ``parallel=True`` computes the same value with a log-depth scan; here
-    both take one reverse loop over stages, batched over lanes, with the
-    lam-free terms formed in bulk first (two fused products per stage).
+    returns ``max |r|`` (per lane of a batch).  The lam-free terms are
+    formed in bulk first.  ``parallel=False`` runs the recursion as one
+    reverse loop over stages (two fused products a stage);
+    ``parallel=True``, the status pass of the serving paths, as the reverse
+    associative scan of the affine maps ``lam_k = A_k' lam_{k+1} + c_k``:
+    ``ceil(log2 N)`` levels of batched products and no loop over stages.
     """
     single = sqp.A.dim() == 3
     if single:
@@ -748,18 +879,29 @@ def stagewise_dual_residual(sqp: StagewiseQP, X: Tensor, U: Tensor,
         X, U, yX, yU = (a.unsqueeze(0) for a in (X, U, yX, yU))
         yS = None if yS is None else yS.unsqueeze(0)
     N = sqp.horizon
-    cx = _mv(sqp.Qx, X) + sqp.qx + yX                     # [B, N+1, x]
-    cu = _mv(sqp.Ru, U) + sqp.ru + yU                     # [B, N, u]
+    cx = _smv(sqp.Qx, X) + sqp.qx + yX                    # [B, N+1, x]
+    cu = _smv(sqp.Ru, U) + sqp.ru + yU                    # [B, N, u]
     if yS is not None and sqp.Cx is not None:
-        cx = torch.cat([cx[:, :-1] + torch.einsum("bkrx,bkr->bkx", sqp.Cx,
-                                                  yS), cx[:, -1:]], dim=1)
-        cu = cu + torch.einsum("bkru,bkr->bku", sqp.Cu, yS)
-    lam = cx[:, N].unsqueeze(-1)                          # [B, x, 1]
-    r_u = [None] * N
-    for k in range(N - 1, -1, -1):
-        r_u[k] = torch.baddbmm(cu[:, k].unsqueeze(-1), sqp.B[:, k].mT, lam)
-        lam = torch.baddbmm(cx[:, k].unsqueeze(-1), sqp.A[:, k].mT, lam)
-    out = _lane_max(torch.stack(r_u, dim=1).abs())
+        cx = torch.cat([cx[:, :-1] + _smtv(sqp.Cx, yS), cx[:, -1:]], dim=1)
+        cu = cu + _smtv(sqp.Cu, yS)
+    if parallel:
+        # element k = 1..N maps lam_{k+1} to lam_k (the last is the
+        # constant lam_N); the reverse scan applies the later suffix first
+        nb, x = cx.shape[0], sqp.xdim
+        M = torch.cat([sqp.A[:, 1:].mT, sqp.A.new_zeros(nb, 1, x, x)],
+                      dim=1)
+        _, lam = associative_scan(affine_combine, (M, cx[:, 1:]), dim=1,
+                                  reverse=True)
+        r_u = cu + _smtv(sqp.B, lam)                      # lam[k] = lam_{k+1}
+    else:
+        lam = cx[:, N].unsqueeze(-1)                      # [B, x, 1]
+        r_u = [None] * N
+        for k in range(N - 1, -1, -1):
+            r_u[k] = torch.baddbmm(cu[:, k].unsqueeze(-1), sqp.B[:, k].mT,
+                                   lam)
+            lam = torch.baddbmm(cx[:, k].unsqueeze(-1), sqp.A[:, k].mT, lam)
+        r_u = torch.stack(r_u, dim=1)
+    out = _lane_max(r_u.abs())
     return out[0] if single else out
 
 
@@ -901,27 +1043,33 @@ def _fused_tick_exec(plan, sqp, scale, x0, warm, options):
     return unscale(out)
 
 
-def _xla_tick_exec(sqp, scale, x0, warm, options):
+def _xla_tick_exec(sqp, scale, x0, warm, options, parallel_scan=False):
     """One tick of the plain batched path (the reference's XLA backend):
     lockstep fixed count across lanes, then the batch-level top-up."""
     opts = options.replace(early_exit=False)
     x0, unscale = _scale_io(scale, x0)
     s = dataclasses.replace(sqp, x0=x0)
-    out = solve_stagewise(s, opts, warm_start=warm, return_warm=True)
-    return unscale(_xla_topup(s, opts, out))
+    out = solve_stagewise(s, opts, warm_start=warm,
+                          parallel_scan=parallel_scan, return_warm=True)
+    return unscale(_xla_topup(s, opts, out, parallel_scan))
 
 
-def _xla_topup(s, opts, out):
+def _xla_topup(s, opts, out, parallel_scan=False):
     """When any lane's delivered status is non-converged after the fixed
     count, continue all lanes from the delivered warm state for
     ``opts.topup_iters`` more iterations (converged lanes sit at their
-    fixed point); a tick where the whole fleet converged skips it."""
+    fixed point); a tick where the whole fleet converged skips it.
+
+    The decision is a host check, one sync a tick: this is the plain
+    path, run eagerly on the device its tensors are on, and the oracle of
+    the fused path, which makes the same decision on the device."""
     topup = int(getattr(opts, "topup_iters", 0))
     if topup <= 0 or not bool((out[2].status == STATUS_MAX_ITER).any()):
         return out
     # seed="zero": a pure continuation of the delivered split state
     t_opts = opts.replace(max_iter=topup, seed="zero", topup_iters=0)
-    return solve_stagewise(s, t_opts, warm_start=out[3], return_warm=True)
+    return solve_stagewise(s, t_opts, warm_start=out[3],
+                           parallel_scan=parallel_scan, return_warm=True)
 
 
 def _leaf_shapes(sqp: StagewiseQP):
@@ -943,9 +1091,11 @@ class StagewiseTick:
     def __init__(self, sqp_scaled: StagewiseQP, batched: bool,
                  backend: str, options: SolverOptions,
                  cold_options: SolverOptions,
-                 swap_options: SolverOptions, scale):
+                 swap_options: SolverOptions, scale,
+                 parallel_scan: bool = False):
         self._batched = batched
         self._backend = backend
+        self._parallel_scan = parallel_scan
         self._options = options
         self._cold_options = cold_options
         self._swap_options = swap_options
@@ -980,7 +1130,8 @@ class StagewiseTick:
         if self._backend == "fused":
             return _fused_tick_exec(self._plans[self._plan_key(opts)],
                                     self._sqp, self._scale, x0, warm, opts)
-        return _xla_tick_exec(self._sqp, self._scale, x0, warm, opts)
+        return _xla_tick_exec(self._sqp, self._scale, x0, warm, opts,
+                              self._parallel_scan)
 
     def __call__(self, x0, warm=None):
         if not self._batched:
@@ -1046,7 +1197,8 @@ def make_stagewise_step(sqp: StagewiseQP,
     ``backend``: ``"fused"`` runs the iterations through the hand-written
     CUDA tick kernel (``ops.stagewise_kernel``; its plain PyTorch version
     on CPU tensors), ``"xla"`` the plain batched :func:`solve_stagewise`
-    path (the reference's XLA backend), ``"auto"`` (default) the kernel
+    path (the reference's XLA backend; with ``parallel_scan=True`` its LQ
+    solves are :func:`lqr_solve_assoc`), ``"auto"`` (default) the kernel
     for a problem on a CUDA device inside the kernel's envelope.
 
     With ``scaling='auto'`` (or an explicit ``(Dx, Du)`` pair) the problem
@@ -1060,8 +1212,6 @@ def make_stagewise_step(sqp: StagewiseQP,
             "contradictory: the fused tick kernel runs the serial "
             "lane-batched sweeps.  Use backend='xla' for the "
             "associative-scan path, or drop parallel_scan for the kernel.")
-    if parallel_scan:
-        raise NotImplementedError(_PARALLEL_SCAN)
     if backend not in ("auto", "fused", "xla"):
         raise ValueError(f"backend must be 'auto', 'fused' or 'xla', got "
                          f"{backend!r}")
@@ -1085,10 +1235,257 @@ def make_stagewise_step(sqp: StagewiseQP,
     if backend != "fused" and getattr(options, "polish_iters", 0) > 0:
         warnings.warn(
             "make_stagewise_step: options.polish_iters is a fused-backend "
-            "feature (not yet ported, ROADMAP item 8); this tick serves "
-            "the plain iteration.", stacklevel=2)
+            "feature (not yet ported: ROADMAP queue 1, the f64 polish); "
+            "this tick serves the plain iteration.", stacklevel=2)
     sqp_b = sqp if batched else _lead(sqp)
     if swap_options is None:
         swap_options = cold_options
     return StagewiseTick(sqp_b, batched, backend, options, cold_options,
-                         swap_options, scale)
+                         swap_options, scale, parallel_scan)
+
+
+class StagewiseMultistep:
+    """Callable chain facade built by :func:`make_stagewise_multistep`:
+    ``step_many(x0, n_ticks, warm=None, x0_seq=None) -> (states, U0s,
+    statuses, info, warm)``; :meth:`replan` swaps same-shape problem data
+    behind the chain and its leading cold tick."""
+
+    def __init__(self, sqp_b: StagewiseQP, scale, batched: bool,
+                 backend: str, parallel_scan: bool, options: SolverOptions,
+                 plant, cold_tick: StagewiseTick):
+        self._batched = batched
+        self._backend = backend
+        self._parallel_scan = parallel_scan
+        self._options = options
+        self._scale = scale
+        self._plant_fn = plant
+        self._cold_tick = cold_tick
+        self._shapes = _leaf_shapes(sqp_b)
+        self._device = sqp_b.A.device
+        self._dtype = sqp_b.A.dtype
+        # the chain's data: its own tensors, which a replan refills in
+        # place, so a captured graph keeps reading them
+        self._data = self._build(sqp_b)
+        self._graph = backend == "fused" and self._device.type == "cuda"
+        self._chains = {}
+
+    @property
+    def backend(self) -> str:
+        return self._backend
+
+    @property
+    def chains(self):
+        """The captured chains by ``(n_ticks, exogenous)`` (CUDA, fused
+        backend)."""
+        return self._chains
+
+    def _build(self, sqp_b: StagewiseQP):
+        """``(sqp_b, sqp_s, plant data, fused plan or None)``, every tensor
+        with storage of its own (so that it can take a replan in place)."""
+        from .._graph import tree_map
+
+        sqp_b = tree_map(
+            lambda t: t.clone(memory_format=torch.contiguous_format), sqp_b)
+        sqp_s = (sqp_b if self._scale is None
+                 else scale_stagewise(sqp_b, *self._scale))
+        pargs = tuple(t[:, 0].contiguous() for t in
+                      (sqp_b.A, sqp_b.B, sqp_b.d))
+        fp = None
+        if self._backend == "fused":
+            from ..ops.stagewise_kernel import build_fused_plan
+            fp = build_fused_plan(sqp_s, self._options)
+            sqp_s = fp.sqp
+        return sqp_b, sqp_s, pargs, fp
+
+    def _tick(self, xk: Tensor, warm):
+        """One warm tick at the original-units state ``xk``."""
+        _, sqp_s, _, fp = self._data
+        if fp is not None:
+            return _fused_tick_exec(fp, sqp_s, self._scale, xk, warm,
+                                    self._options)
+        return _xla_tick_exec(sqp_s, self._scale, xk, warm, self._options,
+                              self._parallel_scan)
+
+    def _plant(self, xk: Tensor, U: Tensor) -> Tensor:
+        if self._plant_fn is not None:
+            return self._plant_fn(xk, U)
+        A0, B0, d0 = self._data[2]
+        return _smv(A0, xk) + _smv(B0, U[:, 0]) + d0
+
+    def _chain(self, n_ticks: int, x0: Tensor, warm, xs=None):
+        """The ticks of one call: ``(next states [T, B, x], first controls
+        [T, B, u], statuses [T, B], the last tick's info, warm)``; tick
+        ``t`` solves at ``xs[t]`` when given, else at the plant's
+        state."""
+        x_prev, nexts, u0s, statuses = x0, [], [], []
+        for t in range(n_ticks):
+            xk = x_prev if xs is None else xs[t]
+            _, U, info, warm = self._tick(xk, warm)
+            x_prev = self._plant(xk, U)
+            nexts.append(x_prev)
+            u0s.append(U[:, 0])
+            statuses.append(info.status)
+        return (torch.stack(nexts), torch.stack(u0s), torch.stack(statuses),
+                info, warm)
+
+    def _run(self, n_ticks: int, x0: Tensor, warm, xs):
+        if not self._graph:
+            return self._chain(n_ticks, x0, warm, xs)
+        from .._graph import CapturedChain, tree_map
+
+        exogenous = xs is not None
+        key = (n_ticks, exogenous)
+        warm = tuple(warm)
+        chain = self._chains.get(key)
+        if chain is None:
+            if self._plant_fn is not None:
+                self._check_plant(x0)
+            if exogenous:
+                fn = lambda xs_, *w: self._chain(n_ticks, xs_[0], w, xs_)
+            else:
+                fn = lambda x0_, *w: self._chain(n_ticks, x0_, w)
+            chain = self._chains[key] = CapturedChain(
+                fn, (xs if exogenous else x0,) + warm,
+                "make_stagewise_multistep")
+        return tree_map(torch.clone, chain(xs if exogenous else x0, *warm))
+
+    def _check_plant(self, x0: Tensor) -> None:
+        """Capture the custom plant alone, so that one the chain cannot
+        hold raises naming it."""
+        from .._graph import CapturedChain
+
+        B = self._data[0].B
+        U = x0.new_zeros(B.shape[:2] + B.shape[-1:])
+        name = getattr(self._plant_fn, "__name__", repr(self._plant_fn))
+        CapturedChain(self._plant_fn, (x0, U),
+                      f"make_stagewise_multistep: the plant {name!r}")
+
+    def replan(self, sqp_new: StagewiseQP) -> None:
+        """Swap the problem data (same shapes and dtypes) behind the chain
+        and its leading cold tick.  The new data is copied into the
+        chain's own tensors (the fused plan's too), so a captured chain
+        runs it without a new capture.  Raises
+        :class:`~copra_tpu_torch.errors.DimensionError` when the shapes or
+        dtypes differ: that is a new facade, not a replan."""
+        from .._graph import copy_into
+
+        if not self._batched and sqp_new.A.dim() == 3:
+            sqp_new = _lead(sqp_new)
+        if _leaf_shapes(sqp_new) != self._shapes:
+            raise DimensionError(
+                "StagewiseMultistep.replan: the new problem's shapes/dtypes "
+                "differ from the facade's — build a new facade with "
+                "make_stagewise_multistep instead.")
+        copy_into(self._data, self._build(sqp_new))
+        self._cold_tick.replan(sqp_new)
+
+    def __call__(self, x0, n_ticks: int, warm=None, x0_seq=None):
+        n_ticks = int(n_ticks)
+        if n_ticks < 1:
+            raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
+        if x0_seq is not None and x0_seq.shape[0] != n_ticks:
+            raise ValueError(
+                f"x0_seq has {x0_seq.shape[0]} ticks but n_ticks="
+                f"{n_ticks}; the exogenous stream defines the chain length "
+                f"— pass matching values.")
+        kd = dict(dtype=self._dtype, device=self._device)
+        exogenous = x0_seq is not None
+        if exogenous:
+            x0_seq = torch.as_tensor(x0_seq).to(**kd)
+            if not self._batched:
+                x0_seq = x0_seq[:, None]
+            x0 = x0_seq[0]
+        else:
+            x0 = torch.as_tensor(x0).to(**kd)
+            if not self._batched:
+                x0 = x0[None]
+        states0 = x0
+        cold = None
+        if warm is None:
+            # the leading cold tick: its own budget, outside the chain
+            _, Uc, infoc, warm = self._cold_tick(states0)
+            if not exogenous:
+                x0 = self._plant(x0, Uc)
+                cold = (Uc[:, 0], infoc.status)
+        nexts, u0s, statuses, info, warm = self._run(n_ticks, x0, warm,
+                                                     x0_seq)
+        if cold is not None:
+            # the cold tick's control was applied to the plant: return it,
+            # so that states[k+1] == plant(states[k], U0s[k]) throughout
+            u0s = torch.cat([cold[0][None], u0s])
+            statuses = torch.cat([cold[1][None], statuses])
+            nexts = torch.cat([x0[None], nexts])
+        states = torch.cat([states0[None], nexts])
+        if not self._batched:
+            states, u0s, statuses = states[:, 0], u0s[:, 0], statuses[:, 0]
+            info = QPSolution(**{f.name: getattr(info, f.name)[0]
+                                 for f in dataclasses.fields(QPSolution)})
+        return states, u0s, statuses, info, warm
+
+
+def make_stagewise_multistep(sqp: StagewiseQP,
+                             options: SolverOptions = SolverOptions(),
+                             cold_options: Optional[SolverOptions] = None,
+                             parallel_scan: bool = False,
+                             backend: str = "auto",
+                             plant=None,
+                             scaling="none") -> StagewiseMultistep:
+    """Multi-tick serving for the stagewise engine: ``n_ticks`` receding-
+    horizon ticks per call, with the plant rollout (or an exogenous state
+    stream) between them.
+
+    Returns ``step_many(x0, n_ticks, warm=None, x0_seq=None)``:
+
+    * ``x0 [B, x]``: the fleet's state at the first tick (``[x]`` for an
+      unbatched ``sqp``).
+    * ``warm``: the carried warm tuple; ``None`` runs one leading cold
+      tick (``cold_options``, through :func:`make_stagewise_step`, outside
+      the chain) whose control is applied before the chain starts.
+    * ``x0_seq [n_ticks, B, x]``: an exogenous state stream (an
+      estimator's output); tick ``k`` solves at ``x0_seq[k]``, and ``x0``
+      is ignored.  Its length must equal ``n_ticks``.
+    * ``plant(x [B, x], U [B, N, u]) -> next x [B, x]`` (factory
+      argument), by default each lane's stage-0 dynamics on the first
+      control.
+
+    It returns ``(states, U0s, statuses, info, warm)``, ``info`` the last
+    tick's :class:`QPSolution`.  The arrays form one closed-loop rollout,
+    ``states[k+1] == plant(states[k], U0s[k])``: in plant mode with
+    ``warm=None`` the cold tick's control is included, so ``states`` is
+    ``[n_ticks+2, B, x]`` and ``U0s``, ``statuses`` ``[n_ticks+1, ...]``;
+    otherwise (a carried ``warm``, or ``x0_seq`` mode, where the cold tick
+    is a warm-up solve at ``x0_seq[0]``) ``[n_ticks+1]`` and ``[n_ticks]``.
+    With ``scaling``, states and controls are in original units and the
+    statuses and residuals in the scaled space, as for
+    :func:`make_stagewise_step`.
+
+    On a CUDA device with ``backend="fused"`` (or ``"auto"`` choosing it)
+    the chain is one CUDA graph per ``(n_ticks, exogenous)``, captured on
+    its first call: the kernel tick (K4 or K5), the top-up decided on the
+    device, the log-depth status pass and the plant, with no host sync; a
+    custom plant the graph cannot hold raises, naming it.  ``replan``
+    copies the new data into the captured tensors, so it needs no new
+    capture.  The returned tensors are the call's own.  With
+    ``backend="xla"`` or on CPU tensors the same ticks run eagerly.
+    """
+    if backend == "fused" and parallel_scan:
+        raise ValueError(
+            "make_stagewise_multistep(backend='fused', parallel_scan=True) "
+            "is contradictory: the fused tick kernel runs the serial "
+            "lane-batched sweeps.  Use backend='xla' for the associative-"
+            "scan path, or drop parallel_scan.")
+    batched = sqp.A.dim() == 4
+    sqp_b = sqp if batched else _lead(sqp)
+    scale = None
+    if isinstance(scaling, str) and scaling == "auto":
+        scale = stagewise_scales(sqp_b)
+    elif isinstance(scaling, tuple):
+        scale = scaling
+    cold_tick = make_stagewise_step(sqp_b, options,
+                                    cold_options=cold_options,
+                                    parallel_scan=parallel_scan,
+                                    backend=backend,
+                                    scaling="none" if scale is None
+                                    else scale)
+    return StagewiseMultistep(sqp_b, scale, batched, cold_tick.backend,
+                              parallel_scan, options, plant, cold_tick)

@@ -9,9 +9,10 @@ Port of ``copra_tpu/systems.py``.  The algebraic contract is the same:
 a zero top block.  Where JAX vmaps over a fleet, every function here takes
 leading batch dimensions directly: an :class:`LTVSystem` whose ``A`` is
 ``[B, N, x, x]`` condenses into a :class:`Preview` whose ``Phi`` is
-``[B, (N+1)*x, x]``.  The horizon recursions are Python loops over N small
+``[B, (N+1)*x, x]``.  The serial recursions are Python loops over N small
 batched products (the reference's ``lax.scan``); the log-depth ``_assoc``
-variants are not ported yet.
+forms run :func:`~copra_tpu_torch._scan.associative_scan` (the reference's
+``lax.associative_scan``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Union
 import torch
 
 from ._precision import highest_precision
+from ._scan import affine_combine, associative_scan
 from ._tensors import as_tensor, common, matvec
 from .errors import DimensionError, bad_dim
 
@@ -227,6 +229,18 @@ class Preview:
         return matvec(Phi, x0) + matvec(Psi, U) + xi
 
 
+def _toeplitz_psi(imps: Tensor, batch, N: int, x: int, u: int) -> Tensor:
+    """Psi from the impulse stack ``imps [..., N, x, u]``: block (i, j) is
+    ``imps[i-1-j]`` for ``0 <= i-1-j < N``, else the zero block."""
+    imps_pad = torch.cat([imps, imps.new_zeros(*batch, 1, x, u)], dim=-3)
+    i_idx = torch.arange(N + 1, device=imps.device)[:, None]
+    j_idx = torch.arange(N, device=imps.device)[None, :]
+    k = i_idx - 1 - j_idx
+    k = torch.where((k >= 0) & (k < N), k, N)
+    blocks = imps_pad[..., k, :, :]            # [..., N+1, N, x, u]
+    return blocks.transpose(-3, -2).reshape(*batch, (N + 1) * x, N * u)
+
+
 @highest_precision
 def condense_lti(A, B, d, horizon: int) -> Preview:
     """Condense an LTI system over ``horizon`` steps: ``Phi``/``xi`` and
@@ -252,16 +266,7 @@ def condense_lti(A, B, d, horizon: int) -> Preview:
         xis.append(xi_k)
     Phi = torch.stack(phis, dim=-3)            # [..., N+1, x, x]
     xi = torch.stack(xis, dim=-2)              # [..., N+1, x]
-    imps.append(torch.zeros(*batch, x, u, **kw))
-    imps_pad = torch.stack(imps, dim=-3)       # [..., N+1, x, u]
-
-    # Psi block (i, j) = imps[i-1-j] for 0 <= i-1-j < N, else the zero block
-    i_idx = torch.arange(N + 1, device=A.device)[:, None]
-    j_idx = torch.arange(N, device=A.device)[None, :]
-    k = i_idx - 1 - j_idx
-    k = torch.where((k >= 0) & (k < N), k, N)
-    blocks = imps_pad[..., k, :, :]            # [..., N+1, N, x, u]
-    Psi = blocks.transpose(-3, -2).reshape(*batch, (N + 1) * x, N * u)
+    Psi = _toeplitz_psi(torch.stack(imps, dim=-3), batch, N, x, u)
     return Preview(Phi=Phi.reshape(*batch, (N + 1) * x, x), Psi=Psi,
                    xi=xi.reshape(*batch, (N + 1) * x), xdim=x, udim=u,
                    horizon=N)
@@ -301,12 +306,77 @@ def condense_ltv(A, B, d) -> Preview:
         xdim=x, udim=u, horizon=N)
 
 
-def condense(system: System) -> Preview:
-    """Condense either system kind."""
+@highest_precision
+def condense_lti_assoc(A, B, d, horizon: int) -> Preview:
+    """Log-depth LTI condensing: the affine steps ``x -> A x + d`` compose
+    as ``(A2 A1, A2 b1 + b2)``, so ``Phi``/``xi`` and the impulse stack
+    come from one associative scan of ``ceil(log2 N)`` levels in place of
+    :func:`condense_lti`'s N steps; the same Toeplitz gather gives
+    ``Psi``.  Leading batch dimensions as in :func:`condense_lti`."""
+    A = as_tensor(A)
+    A, B, d = common(A, as_tensor(B), as_tensor(d), device=A.device)
+    N = int(horizon)
+    x, u = A.shape[-1], B.shape[-1]
+    batch = torch.broadcast_shapes(A.shape[:-2], B.shape[:-2], d.shape[:-1])
+    kw = dict(dtype=A.dtype, device=A.device)
+    As = A.unsqueeze(-3).expand(*batch, N, x, x)
+    ds = d.unsqueeze(-2).unsqueeze(-1).expand(*batch, N, x, 1)
+    phis, xis = associative_scan(affine_combine, (As, ds), dim=len(batch))
+    xis = xis.squeeze(-1)
+    # phis[k] = A^{k+1}, xis[k] = sum_{i<=k} A^i d
+    Bb = B.expand(*batch, x, u)
+    Bb = Bb.unsqueeze(-3)
+    imps = torch.cat([Bb, phis[..., :-1, :, :] @ Bb], dim=-3)
+    eye = torch.eye(x, **kw).expand(*batch, 1, x, x)
+    Phi = torch.cat([eye, phis], dim=-3)
+    xi = torch.cat([torch.zeros(*batch, 1, x, **kw), xis], dim=-2)
+    return Preview(Phi=Phi.reshape(*batch, (N + 1) * x, x),
+                   Psi=_toeplitz_psi(imps, batch, N, x, u),
+                   xi=xi.reshape(*batch, (N + 1) * x), xdim=x, udim=u,
+                   horizon=N)
+
+
+@highest_precision
+def condense_ltv_assoc(A, B, d) -> Preview:
+    """Log-depth LTV condensing: the whole recursion of
+    :func:`condense_ltv`, with the growing Psi row block, is the
+    composition of the pairs ``(A_k, [d_k | B_k e_k'])`` acting as ``m ->
+    A_k m + [d_k | B_k e_k']`` on one ``[x, 1 + N u]`` block ``[xi_k |
+    Psi-row_k]`` per stage, so one associative scan builds it.  Leading
+    batch dimensions as in :func:`condense_ltv`."""
+    A = as_tensor(A)
+    A, B, d = common(A, as_tensor(B), as_tensor(d), device=A.device)
+    N, x = A.shape[-3], A.shape[-1]
+    u = B.shape[-1]
+    batch = torch.broadcast_shapes(A.shape[:-3], B.shape[:-3], d.shape[:-2])
+    kw = dict(dtype=A.dtype, device=A.device)
+    # block-row selectors [N, u, N u]: sel_k deposits B_k at column block k
+    sel = torch.eye(N * u, **kw).reshape(N, u, N * u)
+    U = torch.einsum("...kxu,kuv->...kxv", B.expand(*batch, N, x, u), sel)
+    rhs = torch.cat([d.expand(*batch, N, x).unsqueeze(-1), U], dim=-1)
+    phis, outs = associative_scan(
+        affine_combine, (A.expand(*batch, N, x, x), rhs), dim=len(batch))
+    eye = torch.eye(x, **kw).expand(*batch, 1, x, x)
+    Phi = torch.cat([eye, phis], dim=-3)
+    Psi = torch.cat([torch.zeros(*batch, 1, x, N * u, **kw), outs[..., 1:]],
+                    dim=-3)
+    xi = torch.cat([torch.zeros(*batch, 1, x, **kw), outs[..., 0]], dim=-2)
+    return Preview(Phi=Phi.reshape(*batch, (N + 1) * x, x),
+                   Psi=Psi.reshape(*batch, (N + 1) * x, N * u),
+                   xi=xi.reshape(*batch, (N + 1) * x), xdim=x, udim=u,
+                   horizon=N)
+
+
+def condense(system: System, method: str = "scan") -> Preview:
+    """Condense either system kind.  ``method``: ``"scan"`` (the serial
+    recursion, fewest operations) or anything else for the log-depth
+    ``_assoc`` form, as the reference dispatches."""
     if isinstance(system, LTISystem):
-        return condense_lti(system.A, system.B, system.d, system.horizon)
+        fn = condense_lti if method == "scan" else condense_lti_assoc
+        return fn(system.A, system.B, system.d, system.horizon)
     if isinstance(system, LTVSystem):
-        return condense_ltv(system.A, system.B, system.d)
+        fn = condense_ltv if method == "scan" else condense_ltv_assoc
+        return fn(system.A, system.B, system.d)
     raise TypeError(f"unknown system type: {type(system)!r}")
 
 

@@ -17,7 +17,9 @@ import copra_tpu_torch.qp.admm, copra_tpu_torch.qp.registry
 import copra_tpu_torch.ops.cholesky_kernel, copra_tpu_torch.mpc
 import copra_tpu_torch.profiling, copra_tpu_torch.parallel
 import copra_tpu_torch.parallel.batch, copra_tpu_torch.ops.stagewise_kernel
-import copra_tpu_torch.qp.riccati
+import copra_tpu_torch.qp.riccati, copra_tpu_torch._scan
+import copra_tpu_torch._graph, copra_tpu_torch.ops.counts
+copra_tpu_torch.make_plan_multistep, copra_tpu_torch.make_stagewise_multistep
 copra_tpu_torch.LMPC, copra_tpu_torch.solve_qp_batched
 copra_tpu_torch.solve_mpc_batch, copra_tpu_torch.get_solver
 bad = sorted(m for m in sys.modules
@@ -54,3 +56,36 @@ def test_precision_context_turns_tf32_off_and_restores():
         torch.backends.cuda.matmul.allow_tf32 = before[0]
         torch.backends.cudnn.allow_tf32 = before[1]
         torch.set_float32_matmul_precision(before[2])
+
+
+def test_public_names_still_to_port():
+    """The reference's public names the port lacks are exactly the ones
+    ROADMAP.md still lists; each export of the port resolves."""
+    import copra_tpu
+    import copra_tpu_torch
+
+    missing = set(copra_tpu.__all__) - set(copra_tpu_torch.__all__)
+    assert missing == {"solve", "make_stagewise_server",
+                       "auto_rho_stagewise", "auto_iters_stagewise"}
+    for name in copra_tpu_torch.__all__:
+        assert getattr(copra_tpu_torch, name) is not None, name
+
+
+def test_every_kernel_wrapper_registers_its_count():
+    """The wrappers that launch a hand-written kernel are the ones in
+    ``ops.counts.COUNTED`` (what a captured chain and a smoke run read and
+    reset), each with its count."""
+    from copra_tpu_torch.ops import (admm_kernel, cholesky_kernel, counts,
+                                     stagewise_kernel)
+
+    wrappers = {admm_kernel.fused_admm_box_lanes, admm_kernel.fused_admm_box,
+                admm_kernel.fused_admm_box_shared,
+                admm_kernel.fused_admm_general_shared,
+                admm_kernel.fused_admm_general, cholesky_kernel.chol_batched,
+                stagewise_kernel.fused_stagewise_tick,
+                stagewise_kernel.fused_stagewise_tick_streamed}
+    assert set(counts.COUNTED) == wrappers
+    assert len(counts.COUNTED) == len(wrappers)
+    admm_kernel.fused_admm_box.launches = 3
+    counts.reset()
+    assert all(w.launches == 0 for w in wrappers)

@@ -408,10 +408,12 @@ def test_wrappers_on_cpu_take_the_plain_version_and_options_raise():
     sk.check_fused_envelope(10, 4, 1, 2, torch.float32)   # any (x, u, r)
     with pytest.raises(ValueError, match="envelope"):
         sk.check_fused_envelope(10, 100, 20, 9, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="f64 polish"):
         sk.build_fused_plan(_port(f), opts.replace(polish_iters=2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tr.solve_stagewise(_port(f), opts, parallel_scan=True)
+    # the log-depth sweeps are ported: parallel_scan=True serves
+    _, U_scan, info_scan = tr.solve_stagewise(_port(f), opts,
+                                              parallel_scan=True)
+    assert U_scan.shape == (2, 5, 2) and info_scan.status.shape == (2,)
     with pytest.raises(ValueError, match="contradictory"):
         tr.make_stagewise_step(_port(f), opts, backend="fused",
                                parallel_scan=True)
