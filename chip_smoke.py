@@ -167,7 +167,35 @@ Phases, one line or more each:
 22. the log-depth forms on the card against their serial forms in float64
     (relative 1e-9), each timed beside it: ``condense_ltv_assoc`` at
     config 4's width, ``lqr_solve_assoc`` with the rows' cross term at
-    config 5's (512 lanes, N = 300) and the parallel dual residual there.
+    config 5's (512 lanes, N = 300) and the parallel dual residual there;
+23. the early-exit solve on the kernels: ``solve_stagewise`` with
+    ``early_exit=True`` on the card (chunks of 10 iterations, one launch
+    each, the proximal centre carried; K4 at config 5's shape, K5 at
+    config 6's, equilibrated; 2 lanes, 150 iterations at most) in float64
+    and float32 against the plain early-exit loop on CPU copies: the same
+    per-lane iterations and statuses, X and U within 1e-9 relative
+    (float64) and 1e-4 (float32); launches and ms;
+24. the f64 polish: one float64 K4 launch of 60 iterations from config
+    1's delivered float32 state (B = 4096, N = 10) against its plain
+    version (1e-9 relative), its time by graph replay and its f64 bound;
+    then config 1's fused stagewise line (``bench_all.py:
+    _stagewise_line``): ``auto_rho_stagewise`` (8 probe lanes, 0.003 to
+    3.0, 200 iterations) and ``auto_iters_stagewise`` (50 to 800, both
+    targets 3e-5) with their probes and seconds, then ticks with the 60
+    polish iterations and a top-up of twice the warm budget, per tick and
+    chained through ``make_stagewise_multistep`` with the polish captured,
+    both gated on lanes 0, 1, 17, 4095 and the worst 3 against the native
+    oracle (<= 1e-5);
+25. the measured policies at configs 5 and 6 (``bench_all.py``'s calls)
+    beside the hand constants of phases 6, 7 and 21, with their Pareto and
+    seconds; then ``make_stagewise_server`` on config 6's fleet (128
+    robots): set-up seconds, 2 + 7 ticks, ms per tick, gated on lanes 0
+    and 127 (max_err_rel <= 1e-4);
+26. ``solve`` with no options on four routes, each gated against the
+    native oracle at 1e-5 relative: config 8's problem on the condensed
+    route (N = 100, float64), the automatic stagewise route at N = 400
+    (K4's early-exit solves), the direct LQR route (``iterations == 1``)
+    and float32 data routed to the native engine; ms per solve.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  A chain's
@@ -256,6 +284,10 @@ BUDGETS_MS = (2.0, 5.0, 20.0, 50.0)
 # (phase 19): config 4's fleet at horizon 300, 2 rounds (one leaves the
 # f32 correction floor above the 1e-5 contract at this horizon)
 WIDE_LANES, WIDE_HORIZON, WIDE_ROUNDS = 512, 300, 2
+
+# the no-knobs layer (phases 23-26): the early-exit route's iteration cap
+# against the plain loop, and config 1's polish (bench_all.py's 60)
+EE_ITERS, POLISH_ITERS = 150, 60
 
 
 def fail(msg: str):
@@ -2840,6 +2872,434 @@ def assoc_phase(tt, dev, plan_arrays, cfg5):
         fail(f"a log-depth form differs from its serial form by {worst:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# The no-knobs layer (phases 23-26): the early-exit solve on K4/K5, the f64
+# polish, the measured serving policies and make_stagewise_server, and
+# solve.
+# ---------------------------------------------------------------------------
+
+
+def _on(sqp, device, dtype=None, lanes=None):
+    """``sqp`` (a StagewiseQP) on ``device`` in ``dtype``, cut to
+    ``lanes``."""
+    import dataclasses
+
+    return dataclasses.replace(sqp, **{
+        f.name: None if getattr(sqp, f.name) is None
+        else (getattr(sqp, f.name) if lanes is None
+              else getattr(sqp, f.name)[lanes]).to(device=device, dtype=dtype)
+        for f in dataclasses.fields(sqp)})
+
+
+def _entry(sk, sqp):
+    return (sk.fused_stagewise_tick
+            if sk.fused_mode(sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows,
+                             sqp.A.dtype) == "resident"
+            else sk.fused_stagewise_tick_streamed)
+
+
+def early_exit_phase(tt, sk, cfgs, reset_counts):
+    """Phase 23: ``solve_stagewise(early_exit=True)`` on the card (the
+    chunked route on K4 at config 5's shape, on K5 at config 6's,
+    equilibrated) against the plain early-exit loop on CPU copies, 2
+    lanes, float64 and float32.  Returns the launches by entry point."""
+    import torch
+    from copra_tpu_torch.qp.riccati import scale_stagewise
+
+    launches = {}
+    for cfg in cfgs:
+        sqp = cfg["fleet"]
+        if cfg["scale"] is not None:
+            sqp = scale_stagewise(sqp, *cfg["scale"])
+        opts = cfg["cold_opts"].replace(max_iter=EE_ITERS, early_exit=True,
+                                        eps_rel=0.0, check_interval=10)
+        line = []
+        for dt in (torch.float64, torch.float32):
+            card = _on(sqp, sqp.A.device, dt, slice(0, 2))
+            entry = _entry(sk, card)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = tt.solve_stagewise(card, opts)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n = entry.launches
+            launches[entry.__name__] = launches.get(entry.__name__, 0) + n
+            want = tt.solve_stagewise(_on(card, "cpu"), opts)
+            it_g, it_w = got[2].iterations.cpu(), want[2].iterations
+            st_g, st_w = got[2].status.cpu(), want[2].status
+            scale = max(1.0, max(float(w.abs().max()) for w in want[:2]))
+            rel = max(float((g.cpu() - w).abs().max())
+                      for g, w in zip(got[:2], want[:2])) / scale
+            tol = F64_TOL if dt == torch.float64 else F32_RTOL
+            line.append(f"{str(dt)[6:]}: iterations {it_g.tolist()} (plain "
+                        f"{it_w.tolist()}), statuses {st_g.tolist()} (plain "
+                        f"{st_w.tolist()}), X/U rel {rel:.3e} (tol {tol}); "
+                        f"{n} {entry.__name__} launches, {ms:.1f} ms")
+            if n == 0:
+                fail(f"{cfg['name']} early exit: no {entry.__name__} launch")
+            if not (torch.equal(it_g, it_w) and torch.equal(st_g, st_w)
+                    and rel <= tol):
+                fail(f"{cfg['name']} early exit {dt}: the kernel route "
+                     f"differs from the plain loop: " + line[-1])
+        print(f"early-exit route, {cfg['name']}'s shape (2 lanes, "
+              f"{EE_ITERS} iterations at most, eps_abs {opts.eps_abs:g}, "
+              f"rho {opts.rho:g}, a check every 10): " + "; ".join(line))
+    return launches
+
+
+def build_config1_stagewise(tt, device):
+    """Config 1's problem (``bench_all.py:config1``) in stagewise form
+    over the fleet, its native-oracle plan and the drifting states of
+    ``bench_all.py:_stagewise_line``."""
+    import dataclasses
+
+    import torch
+    from copra_tpu_torch.qp.riccati import from_mpc
+
+    N, batch = C1_N, FLEET
+    A, B, d = double_integrator()
+    rng = np.random.default_rng(1)
+    x0s = np.array([1.0, 0.0])[None] + rng.normal(scale=[0.3, 0.2],
+                                                  size=(batch, 2))
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(x0s[0]), N)
+    costs = (tt.TrajectoryCost(M=tt.span_matrix(f32([[1.0, 0.0]]), N + 1),
+                               p=f32(np.zeros(N + 1)),
+                               weights=f32(np.full(N + 1, 10.0))),
+             tt.SimpleControlCost(p=f32(np.zeros(N)),
+                                  weights=f32(np.full(N, 1e-3))))
+    cons = (tt.ControlBoundConstraint.create([-2.0], [2.0]),)
+    plan = tt.make_control_plan(system, costs, cons)
+    one = from_mpc(system, costs, cons)
+    sqp = dataclasses.replace(one, **{
+        f.name: getattr(one, f.name).expand(
+            (batch,) + getattr(one, f.name).shape).contiguous()
+        for f in dataclasses.fields(one) if getattr(one, f.name) is not None
+    })
+    sqp = dataclasses.replace(sqp, x0=f32(x0s))
+    drift = rng.normal(scale=0.02, size=(SHORT_TICKS + 2, batch, 2)).cumsum(0)
+    x0_seq = [f32(x0s + drift[min(t, SHORT_TICKS + 1)] + 0.001 * t)
+              for t in range(SHORT_TICKS + 9)]
+    return sqp, plan, x0_seq
+
+
+def polish_phase(tt, sk, dev, reset_counts):
+    """Phase 24: the f64 polish launch on K4 against its plain version,
+    then config 1's fused stagewise line end to end (``bench_all.py:
+    _stagewise_line``): the measured policies, 60 polish iterations, a
+    top-up of twice the warm budget; per-tick ticks gated on lanes 0, 1,
+    17, B-1 and the worst 3 against the native oracle, then the same ticks
+    chained with the polish captured.  Returns the K4 launches of the
+    served paths."""
+    import torch
+    from copra_tpu_torch.ops.polish import polish
+
+    sqp, plan, x0_seq = build_config1_stagewise(tt, dev)
+    B, N, x, u, r = FLEET, C1_N, 2, 1, 0
+    # the polish launch against its plain version, from a delivered state
+    opts = tt.SolverOptions(max_iter=300, early_exit=False, rho=0.1,
+                            polish=False, polish_iters=POLISH_ITERS)
+    fp = sk.build_fused_plan(sqp, opts)
+    x0 = sqp.x0.mT.contiguous()
+    X0, U0, _, warm = sk.solve_stagewise_fused(
+        sqp, opts.replace(polish_iters=0), return_warm=True, plan=fp)
+    empty = X0.new_zeros((B, N, 0))
+    w32, k32 = sk._pack_warm(fp, *warm, empty, empty), sk._pack_work(fp, X0,
+                                                                     U0)
+    f64 = torch.float64
+    args = (fp.polish.plan, x0.to(f64), w32.to(f64))
+    kw = dict(n_iter=POLISH_ITERS, N=N, x=x, u=u, r=r,
+              sigma=float(np.float32(opts.sigma)),
+              alpha=float(np.float32(opts.alpha)), work=k32.to(f64),
+              carry=True)
+    got = sk.fused_stagewise_tick(*args, **kw, plan_lf=fp.polish.plan_lf)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    want = sk.stagewise_tick_plain(*args, **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    rel = _max_diff(got, want) / scale
+    run = lambda: polish(fp.polish, sk.fused_stagewise_tick, x0, w32, k32,
+                         n_iter=POLISH_ITERS, N=N, x=x, u=u, r=r,
+                         options=opts)
+    pol_ms = _graph_ms(run, 10)
+    bnd = bound(stagewise_flops(N, x, u, r, POLISH_ITERS, B),
+                _nbytes(*args, kw["work"], *want), peak=F64_PEAK)
+    print(f"kernel fused_stagewise_tick, f64 polish of config 1's fleet "
+          f"(B = {B}, N = {N}, {POLISH_ITERS} iterations from the "
+          f"delivered f32 state, centre carried): rel err {rel:.3e} (tol "
+          f"{F64_TOL}) against its plain version; the polish (casts and "
+          f"launch) {pol_ms:.4f} ms by graph replay, plain {plain_ms:.1f} "
+          f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}, f64 peak)")
+    if not rel <= F64_TOL:
+        fail(f"the f64 polish launch differs from its plain version by "
+             f"{rel:.3e}")
+
+    # config 1's fused stagewise line: the measured policies
+    t0 = time.perf_counter()
+    rho, rho_probe = tt.auto_rho_stagewise(
+        sqp, tt.SolverOptions(max_iter=200, early_exit=False),
+        probe_lanes=8, drift_scale=0.02,
+        candidates=(0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0),
+        return_probe=True)
+    rho_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    switers, pareto = tt.auto_iters_stagewise(
+        sqp, tt.SolverOptions(early_exit=False, rho=rho), probe_lanes=8,
+        drift_scale=0.02, candidates=(50, 100, 200, 300, 400, 600, 800),
+        target_applied_err=3e-5, target_tail_err=3e-5, return_probe=True)
+    iters_s = time.perf_counter() - t0
+    print(f"config 1 measured policy: rho {rho:g} (probe "
+          f"{ {k: float(f'{v:.3g}') for k, v in rho_probe.items()} }, "
+          f"{rho_s:.2f} s), warm iterations {switers} (Pareto "
+          f"{ {k: {kk: float(f'{vv:.3g}') for kk, vv in v.items()} for k, v in pareto.items()} }"
+          f", {iters_s:.2f} s)")
+    # the f32 run of a warm tick alone, at the measured budget
+    k4_ms = _graph_ms(lambda: sk.fused_stagewise_tick(
+        fp.plan, x0, w32, n_iter=switers, N=N, x=x, u=u, r=r,
+        sigma=opts.sigma, alpha=opts.alpha, plan_lf=fp.plan_lf), 3)
+    sopts = tt.SolverOptions(max_iter=switers, early_exit=False, rho=rho,
+                             polish_iters=POLISH_ITERS,
+                             topup_iters=2 * switers)
+    cold = sopts.replace(max_iter=2000)
+    reset_counts()
+    tick = tt.make_stagewise_step(sqp, sopts, cold_options=cold,
+                                  backend="fused")
+    X, U, info, warm1 = tick(x0_seq[0])
+    X, U, info, warm1 = tick(x0_seq[1], warm1)
+    w = warm1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SHORT_TICKS):
+        X, U, info, w = tick(x0_seq[2 + t], w)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / SHORT_TICKS
+    for t in range(6):
+        X, U, info, w = tick(x0_seq[2 + SHORT_TICKS + t - 1], w)
+    torch.cuda.synchronize()
+    launches = sk.fused_stagewise_tick.launches
+    share = float((info.status == 0).double().mean())
+    lanes = tuple(sorted({0, 1, 17, B - 1, *info.failed_lanes(3)}))
+    x_last = x0_seq[SHORT_TICKS + 6].cpu().numpy()
+    err = gate_vs_oracle(tt, plan, U.reshape(B, -1), x_last, lanes)
+    # chained, the polish captured: the same warm state and states
+    reset_counts()
+    many = tt.make_stagewise_multistep(sqp, sopts, cold_options=cold,
+                                       backend="fused")
+    seq = torch.stack(x0_seq[2:SHORT_TICKS + 7])
+    many(None, seq.shape[0], warm=warm1, x0_seq=seq)
+    out, chost_ms, cdev_ms, _ = _timed(
+        lambda i: many(None, seq.shape[0], warm=warm1, x0_seq=seq), 3)
+    torch.cuda.synchronize()
+    launches += sk.fused_stagewise_tick.launches
+    T = seq.shape[0]
+    cerr = gate_vs_oracle(tt, plan, out[3].x.reshape(B, -1), x_last, lanes)
+    _no_sync("a make_stagewise_multistep replay with the polish",
+             lambda: many(None, T, warm=warm1, x0_seq=seq))
+    # not counted from here: the ticks whose top-up ran (the polished first
+    # run of each, from the same warm state, with no top-up)
+    first = tt.make_stagewise_step(sqp, sopts.replace(topup_iters=0),
+                                   cold_options=cold, backend="fused")
+    w, fired = warm1, 0
+    for t in range(T):
+        fired += int(not bool((first(seq[t], w)[2].status == 0).all()))
+        w = tick(seq[t], w)[3]
+    print(f"main path config 1 fused stagewise line (B = {B}, N = {N}, rho "
+          f"{rho:g}, {switers} warm iterations + {POLISH_ITERS} f64 polish, "
+          f"top-up {2 * switers}): per tick {host_ms:.4f} host ms, "
+          f"{B * 1e3 / host_ms:.1f} solves/s; chained ({T} ticks a CUDA "
+          f"graph, the polish captured) {chost_ms / T:.4f} host ms/tick, "
+          f"{cdev_ms / T:.4f} device ms/tick, {B * T * 1e3 / cdev_ms:.1f} "
+          f"solves/s (K4's f32 run of {switers} iterations alone "
+          f"{k4_ms:.4f} ms, the polish {pol_ms:.4f} ms); top-up ran on {fired} of {T} chained ticks; converged "
+          f"share {share:.6f}; {launches} "
+          f"fused_stagewise_tick launches; max_err_vs_exact {err:.3e} "
+          f"per tick, {cerr:.3e} chained, on lanes {list(lanes)}")
+    if launches == 0:
+        fail("config 1's stagewise line never launched fused_stagewise_tick")
+    if not (err <= ORACLE_TOL and cerr <= ORACLE_TOL):
+        fail(f"config 1 polished: max_err_vs_exact {err:.3e} / chained "
+             f"{cerr:.3e} > {ORACLE_TOL}")
+    return launches
+
+
+def policies_phase(tt, sk, cfg6, cfg5, reset_counts):
+    """Phase 25: ``auto_rho_stagewise`` and ``auto_iters_stagewise`` at
+    configs 5 and 6 as ``bench_all.py`` calls them (config 5 on the two
+    per-axis lanes, config 6 on 4 equilibrated robots with the physical
+    drift mapped into scaled space), beside the hand constants of phases
+    6, 7 and 21; then ``make_stagewise_server`` on config 6's fleet,
+    served and gated against the native oracle.  Returns the launches by
+    entry point."""
+    import dataclasses
+
+    import torch
+    from copra_tpu_torch.qp.riccati import scale_stagewise
+
+    launches = {}
+
+    def count():
+        for e in (sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed):
+            launches[e.__name__] = launches.get(e.__name__, 0) + e.launches
+
+    # config 5: the two per-axis problems (bench_all.py:636-668)
+    reset_counts()
+    opts5 = tt.SolverOptions(max_iter=300, early_exit=False, polish=False,
+                             eps_abs=1e-6)
+    sq5 = _on(cfg5["fleet"], cfg5["fleet"].A.device, None, slice(0, 2))
+    t0 = time.perf_counter()
+    rho5 = tt.auto_rho_stagewise(sq5, opts5.replace(max_iter=30),
+                                 cold_options=opts5)
+    opts5 = opts5.replace(rho=rho5)
+    it5, p5 = tt.auto_iters_stagewise(sq5, opts5, cold_options=opts5,
+                                      candidates=(10, 20, 30, 50, 80),
+                                      target_applied_err=1e-5,
+                                      return_probe=True)
+    torch.cuda.synchronize()
+    s5 = time.perf_counter() - t0
+    count()
+    # config 6: 4 robots of its fleet, equilibrated (bench_all.py:1390-1418)
+    reset_counts()
+    opts6 = tt.SolverOptions(max_iter=300, early_exit=False, polish=False,
+                             eps_abs=1e-4)
+    Dx = cfg6["scale"][0].double().cpu().numpy()
+    rng = np.random.default_rng(3)
+    pert = rng.normal(scale=np.repeat([0.03, 0.01, 0.03, 0.05], 3),
+                      size=(4, 12))
+    x0s = srb_quadruped()["x0"].astype(np.float64)[None] + pert
+    sq6 = _on(cfg6["fleet"], cfg6["fleet"].A.device, None, slice(0, 4))
+    sq6 = scale_stagewise(dataclasses.replace(
+        sq6, x0=torch.tensor(x0s.astype(np.float32), device=sq6.A.device)),
+        *cfg6["scale"])
+    t0 = time.perf_counter()
+    rho6 = tt.auto_rho_stagewise(sq6, opts6.replace(max_iter=30),
+                                 cold_options=opts6, drift_scale=0.002 / Dx)
+    opts6 = opts6.replace(rho=rho6)
+    it6, p6 = tt.auto_iters_stagewise(sq6, opts6, cold_options=opts6,
+                                      candidates=(10, 20, 30, 50, 80, 120),
+                                      target_applied_err=1e-5,
+                                      drift_scale=0.002 / Dx,
+                                      return_probe=True)
+    torch.cuda.synchronize()
+    s6 = time.perf_counter() - t0
+    count()
+    fmt = lambda p: {k: {kk: float(f"{vv:.3g}") for kk, vv in v.items()}
+                     for k, v in p.items()}
+    print(f"measured policies: config 5 rho {rho5:g}, {it5} warm iterations"
+          f" (hand constants of phases 7 and 21: rho "
+          f"{cfg5['opts'].rho:g}, {cfg5['opts'].max_iter}), Pareto "
+          f"{fmt(p5)}, {s5:.2f} s; config 6 rho {rho6:g}, {it6} warm "
+          f"iterations (hand constants of phases 6 and 21: rho "
+          f"{cfg6['opts'].rho:g}, {cfg6['opts'].max_iter}), Pareto "
+          f"{fmt(p6)}, {s6:.2f} s")
+
+    # make_stagewise_server on config 6's fleet
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick, policy = tt.make_stagewise_server(cfg6["fleet"],
+                                            return_policy=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    seq = cfg6["x0_seq"]
+    X, U, info, warm = tick(seq[0])
+    for t in range(1, WARMUP_TICKS):
+        X, U, info, warm = tick(seq[t], warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(WARMUP_TICKS, WARMUP_TICKS + TIMED_TICKS):
+        X, U, info, warm = tick(seq[t], warm)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_TICKS
+    count()
+    rel, err = gate_stagewise(cfg6, U)
+    n = launches.get("fused_stagewise_tick_streamed", 0)
+    print(f"main path make_stagewise_server on config 6's fleet "
+          f"({U.shape[0]} robots): rho {policy['rho']:g}, "
+          f"{policy['warm_iters']} warm iterations (+"
+          f"{policy['options'].topup_iters} top-up), scaled "
+          f"{policy['scaled']}; set-up {setup_s:.2f} s; {ms:.4f} host "
+          f"ms/tick over {TIMED_TICKS} ticks; converged share "
+          f"{float((info.status == 0).double().mean()):.6f}; "
+          f"max_err_vs_exact {err:.3e}, max_err_rel {rel:.3e} on lanes "
+          f"{list(cfg6['lanes'])}; K5 launches in the phase {n}")
+    if tick.backend != "fused" or n == 0:
+        fail("make_stagewise_server did not serve through the kernel")
+    if not rel <= REL_TOL:
+        fail(f"make_stagewise_server: max_err_rel {rel:.3e} > {REL_TOL}")
+    return launches
+
+
+def solve_phase(tt, sk, dev, reset_counts):
+    """Phase 26: ``solve`` on four routes, each gated against the native
+    oracle at the library's contract (1e-5 relative): the condensed route
+    on config 8's controller problem (N = 100, float64), the automatic
+    stagewise route at N = 400 (early-exit solves on K4), the direct LQR
+    route (``iterations == 1``) and the float32 route to the native
+    engine.  Returns K4's launches."""
+    import torch
+
+    f64 = lambda a: torch.tensor(np.asarray(a, np.float64), device=dev)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    A8, B8, d8 = double_integrator(T=0.005)
+
+    def config8(f):
+        system = tt.LTISystem.create(f(A8), f(B8), f(d8), f([0.0, -1.5]),
+                                     FACADE_N)
+        costs = (tt.TargetCost.create(f(np.eye(2)), f([0.0, -1.0]),
+                                      weights=f([10.0, 1e4])),
+                 tt.ControlCost.create(f([[1.0]]), f([2.0]),
+                                       weights=f([1e-4])))
+        return system, costs, (tt.ControlBoundConstraint.create(
+            f([-BOUND]), f([BOUND])),)
+
+    T = 0.02
+    A4, B4 = np.array([[1.0, T], [0.0, 1.0]]), np.array([[T * T / 2], [T]])
+    long = (tt.LTISystem.create(f64(A4), f64(B4), f64(np.zeros(2)),
+                                f64([1.0, 0.0]), 400),
+            (tt.SimpleTrajectoryCost.create(f64(np.zeros(2)),
+                                            weights=f64([5.0, 0.5])),
+             tt.SimpleControlCost.create(f64(np.zeros(1)),
+                                         weights=f64([1e-3]))),
+            (tt.ControlBoundConstraint.create(f64([-1.0]), f64([1.0])),))
+    c8 = config8(f64)
+    routes = (("condensed, config 8 (N = 100, f64)", c8, "condensed"),
+              ("stagewise, N = 400 (f64)", long, "stagewise"),
+              ("direct LQR, config 8 costs only (f64)", c8[:2] + ((),),
+               "lqr"),
+              ("float32 floor, config 8 (f32)", config8(f32), "native"))
+    reset_counts()
+    line, k4 = [], 0
+    for name, (system, costs, cons), route in routes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tt.solve(system, costs, cons)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        qp = tt.build_qp(tt.condense(system), system.x0, costs, cons)
+        exact = tt.solve_qp_native(qp).x
+        scale = max(1.0, float(exact.abs().max()))
+        rel = float((res.control.double().cpu() - exact).abs().max()) / scale
+        status, iters = int(res.solution.status), \
+            int(res.solution.iterations)
+        n = sk.fused_stagewise_tick.launches - k4
+        k4 += n
+        line.append(f"{name}: {ms:.1f} ms, status {status}, {iters} "
+                    f"iterations, {n} K4 launches, rel err {rel:.3e}")
+        ok = status == tt.STATUS_SOLVED and rel <= ORACLE_TOL
+        ok = ok and (route != "lqr" or iters == 1)
+        ok = ok and (route != "stagewise" or n > 0)
+        ok = ok and (route != "native" or res.control.dtype == torch.float32)
+        if not ok:
+            fail(f"solve, {line[-1]}")
+    print("main path solve (no options): " + "; ".join(line))
+    return k4
+
+
 def main() -> int:
     import torch
 
@@ -2855,6 +3315,7 @@ def main() -> int:
     from copra_tpu_torch.ops.counts import reset as reset_counts
 
     # phase 1: device
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -3016,15 +3477,26 @@ def main() -> int:
             tt, sk, cfg, reset_counts, probe[entry][1])
     # phase 22: the log-depth forms against their serial forms
     assoc_phase(tt, dev, build_fleet(BATCH, HORIZON)[0], configs[1])
+    # phases 23-26: the no-knobs layer on K4/K5
+    for entry, n in early_exit_phase(tt, sk, configs, reset_counts).items():
+        kernels[entry]["launches"] += n
+    kernels["fused_stagewise_tick"]["launches"] += polish_phase(
+        tt, sk, dev, reset_counts)
+    for entry, n in policies_phase(tt, sk, configs[0], configs[1],
+                                   reset_counts).items():
+        kernels[entry]["launches"] += n
+    kernels["fused_stagewise_tick"]["launches"] += solve_phase(
+        tt, sk, dev, reset_counts)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_wide)
     order = ("fused_admm_box_lanes", "fused_admm_box",
              "fused_admm_box_shared", "fused_stagewise_tick",
              "fused_stagewise_tick_streamed", "fused_admm_general_shared",
              "fused_admm_general", "chol_batched")
+    print(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

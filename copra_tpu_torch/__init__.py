@@ -8,9 +8,11 @@ registry, ``solve_mpc``, the ``LMPC`` facade and the scenario batch
 ``make_plan_step`` (the accurate and f32 fused ticks on per-lane and shared
 plans, the box-only and general-row steps) and its multistep chain
 (``make_plan_multistep``), the stagewise Riccati-in-ADMM engine with its
-serving tick and multistep chain (``make_stagewise_multistep``), and the
-log-depth forms (``lqr_solve_assoc``, ``condense_lti_assoc``,
-``condense_ltv_assoc``).  On a CUDA device the multistep chains run as
+serving tick, multistep chain (``make_stagewise_multistep``), measured
+serving policies (``auto_rho_stagewise``, ``auto_iters_stagewise``), f64
+polish and no-knobs server (``make_stagewise_server``), the no-knobs
+one-shot ``solve``, and the log-depth forms (``lqr_solve_assoc``,
+``condense_lti_assoc``, ``condense_ltv_assoc``).  On a CUDA device the multistep chains run as
 CUDA graphs, their ticks free of host syncs.  The fixed-count ADMM
 iterations and the batched Cholesky run in hand-written CUDA kernels
 (``csrc/admm_box.cu``, ``csrc/admm_box_shared.cu``,
@@ -40,10 +42,13 @@ from .plan import (ControlPlan, auto_rho, make_control_plan,
 from .qp.admm import solve_qp, solve_qp_batched
 from .qp.native import native_available, solve_qp_native
 from .qp.registry import available_solvers, get_solver, register_solver
-from .qp.riccati import (StagewiseQP, lqr_solve, lqr_solve_assoc,
-                         make_stagewise_multistep, make_stagewise_step,
-                         scale_stagewise, solve_mpc_stagewise,
-                         solve_stagewise, stack_stagewise, stagewise_scales)
+from .qp.riccati import (StagewiseQP, auto_iters_stagewise,
+                         auto_rho_stagewise, lqr_solve, lqr_solve_assoc,
+                         make_stagewise_multistep, make_stagewise_server,
+                         make_stagewise_step, scale_stagewise,
+                         solve_mpc_stagewise, solve_stagewise,
+                         stack_stagewise, stagewise_scales)
+from .solve import solve
 from .qp.types import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
                        STATUS_PRIMAL_INFEASIBLE, STATUS_SOLVED, DenseQP,
                        QPSolution, SolverOptions, WarmStart)
@@ -55,7 +60,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "set_default_device", "default_device",
-    "LMPC", "MPCResult", "solve_mpc", "solve_mpc_batch",
+    "LMPC", "MPCResult", "solve", "solve_mpc", "solve_mpc_batch",
     "build_qp", "HESSIAN_RIDGE",
     "solve_qp", "solve_qp_batched",
     "register_solver", "get_solver", "available_solvers",
@@ -76,8 +81,9 @@ __all__ = [
     "native_available", "solve_qp_native",
     "StagewiseQP", "lqr_solve", "lqr_solve_assoc", "solve_stagewise",
     "solve_mpc_stagewise", "make_stagewise_step",
-    "make_stagewise_multistep", "stack_stagewise", "stagewise_scales",
-    "scale_stagewise",
+    "make_stagewise_multistep", "make_stagewise_server",
+    "auto_rho_stagewise", "auto_iters_stagewise", "stack_stagewise",
+    "stagewise_scales", "scale_stagewise",
     "span_matrix", "span_vector",
     "CopraError", "DimensionError", "InitializationError", "SolverError",
     "InfeasibleProblemError",

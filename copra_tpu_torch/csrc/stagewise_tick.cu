@@ -239,7 +239,7 @@ stagewise_tick_kernel(const T* __restrict__ plan, const T* __restrict__ x0,
                       int x, int u, int r, int Cp, int Wp, int Kwp,
                       int stages, int group, int kk_resident, int nb, int N,
                       int n_iter, T sigma, T alpha, T oma,
-                      const int* __restrict__ skip) {
+                      const int* __restrict__ skip, int carry) {
   // the top-up of a tick whose lanes all converged: nothing to do
   if (skip != nullptr && *skip != 0) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -332,16 +332,21 @@ stagewise_tick_kernel(const T* __restrict__ plan, const T* __restrict__ x0,
     __syncthreads();
   };
 
-  // proximal centre (X, U) starts at (zX, zU); U and kk of stage N are 0
-  for (size_t e = t; e < S1 * L.Kw; e += nt) {
-    const int k = static_cast<int>(e / L.Kw), c = static_cast<int>(e % L.Kw);
-    const T* w = warm_at(k);
-    T val = T(0);
-    if (c < L.U) val = w[L.zX + c];
-    else if (c < L.kk && k < N) val = w[L.zU + c - L.U];
-    work_at(k)[c] = val;
+  // proximal centre (X, U) starts at (zX, zU); U and kk of stage N are 0.
+  // With carry the work rows the wrapper handed in are the centre (the
+  // last iterate of a run this one continues)
+  if (!carry) {
+    for (size_t e = t; e < S1 * L.Kw; e += nt) {
+      const int k = static_cast<int>(e / L.Kw);
+      const int c = static_cast<int>(e % L.Kw);
+      const T* w = warm_at(k);
+      T val = T(0);
+      if (c < L.U) val = w[L.zX + c];
+      else if (c < L.kk && k < N) val = w[L.zU + c - L.U];
+      work_at(k)[c] = val;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   for (int it = 0; it < n_iter; ++it) {
     // ---- backward sweep: shifted costs + linear Riccati step ----
@@ -464,21 +469,22 @@ cudaError_t allow_max_smem_all(int optin) {
 template <typename T, int M>
 cudaError_t launch(const void* plan, const void* x0, void* state, int nb,
                    int N, int x, int u, int r, int n_iter, double sigma,
-                   double alpha, const int* skip, const RingConfig& c,
-                   cudaStream_t stream) {
+                   double alpha, const int* skip, int carry,
+                   const RingConfig& c, cudaStream_t stream) {
   stagewise_tick_kernel<T, M><<<nb, c.threads, c.bytes, stream>>>(
       static_cast<const T*>(plan), static_cast<const T*>(x0),
       static_cast<T*>(state), make_layout(x, u, r), x, u, r, c.Cp, c.Wp,
       c.Kwp, c.stages, c.group, c.kk_resident, nb, N, n_iter,
       static_cast<T>(sigma), static_cast<T>(alpha),
-      static_cast<T>(1.0 - alpha), skip);
+      static_cast<T>(1.0 - alpha), skip, carry);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* plan, const void* x0, void* state, int nb,
                    int N, int x, int u, int r, int n_iter, double sigma,
-                   double alpha, const int* skip, cudaStream_t stream) {
+                   double alpha, const int* skip, int carry,
+                   cudaStream_t stream) {
   if (x < 1 || u < 1 || r < 0 || x + u + r > kMaxWidth || nb < 1 || N < 1)
     return cudaErrorInvalidValue;
   const RingConfig c = ring_config(N, x, u, r, sizeof(T));
@@ -486,16 +492,16 @@ cudaError_t launch(const void* plan, const void* x0, void* state, int nb,
   switch (c.unroll) {
     case 4:
       return launch<T, 4>(plan, x0, state, nb, N, x, u, r, n_iter,
-                           sigma, alpha, skip, c, stream);
+                           sigma, alpha, skip, carry, c, stream);
     case 16:
       return launch<T, 16>(plan, x0, state, nb, N, x, u, r, n_iter,
-                           sigma, alpha, skip, c, stream);
+                           sigma, alpha, skip, carry, c, stream);
     case 32:
       return launch<T, 32>(plan, x0, state, nb, N, x, u, r, n_iter,
-                           sigma, alpha, skip, c, stream);
+                           sigma, alpha, skip, carry, c, stream);
     default:
       return launch<T, 0>(plan, x0, state, nb, N, x, u, r, n_iter,
-                          sigma, alpha, skip, c, stream);
+                          sigma, alpha, skip, carry, c, stream);
   }
 }
 
@@ -545,19 +551,22 @@ int copra_stagewise_prepare() {
 // x0 [x, B] lane-last) on `stream`: warm is updated in place, work is
 // written whole.  skip (null: never) points to an int on the device; when
 // it is non-zero every block returns at its entry and the state stays as
-// it was.  Returns cudaGetLastError() (0 = launched),
-// cudaErrorInvalidValue outside the envelope.
+// it was.  carry non-zero: the work rows as given are the proximal centre
+// of the first iteration (a run that continues the one that wrote them);
+// zero: the centre starts at the warm rows' zX, zU.  Returns
+// cudaGetLastError() (0 = launched), cudaErrorInvalidValue outside the
+// envelope.
 int copra_stagewise_tick(const void* plan, const void* x0, void* state,
                          int nb, int N, int x, int u, int r, int n_iter,
                          int f64, double sigma, double alpha,
-                         const void* skip, void* stream) {
+                         const void* skip, int carry, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sk = static_cast<const int*>(skip);
   return static_cast<int>(
       f64 ? launch<double>(plan, x0, state, nb, N, x, u, r, n_iter, sigma,
-                           alpha, sk, st)
+                           alpha, sk, carry, st)
           : launch<float>(plan, x0, state, nb, N, x, u, r, n_iter, sigma,
-                          alpha, sk, st));
+                          alpha, sk, carry, st));
 }
 
 }  // extern "C"

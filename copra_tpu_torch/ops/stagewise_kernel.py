@@ -48,9 +48,6 @@ MAX_WIDTH = 128          # x + u + r, the reference's streamed-mode limit
 SMEM_LIMIT = 232448      # shared memory one H100 block may use (227 KB)
 MAX_STAGES = 8           # stage tiles in the kernel's ring, at most
 
-_POLISH = ("options.polish_iters > 0 needs the f64 polish, which is not "
-           "yet ported (ROADMAP queue 1, the f64 polish)")
-
 
 @dataclasses.dataclass(frozen=True)
 class LQRGains:
@@ -177,7 +174,8 @@ def stagewise_tick_plain(plan: Tensor, x0: Tensor, warm: Tensor, *,
                          n_iter: int, N: int, x: int, u: int, r: int,
                          sigma: float, alpha: float,
                          work: Optional[Tensor] = None,
-                         skip: Optional[Tensor] = None
+                         skip: Optional[Tensor] = None,
+                         carry: bool = False
                          ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of one fixed-count tick on the packed tensors.
 
@@ -194,20 +192,28 @@ def stagewise_tick_plain(plan: Tensor, x0: Tensor, warm: Tensor, *,
     work)`` come back unchanged, as the kernel returns at its entry (the
     top-up of a tick whose lanes all converged).  Here the flag is read on
     the host.
+
+    The proximal centre ``(X, U)`` of the first iteration is ``(zX, zU)``
+    of ``warm``; with ``carry`` it is the ``X``, ``U`` rows of ``work``
+    as given, so that a run continues the one that returned ``(warm,
+    work)`` as if it had not stopped (the chunks of the early-exit solve,
+    the polish from a delivered iterate).
     """
     lo = _Layout(x, u, r)
-    if skip is not None:
-        if work is None:
-            raise ValueError("skip needs the work tensor it keeps")
-        if bool(skip):
-            return warm.clone(), work.clone()
+    if (skip is not None or carry) and work is None:
+        raise ValueError("skip and carry need the work tensor they keep")
+    if skip is not None and bool(skip):
+        return warm.clone(), work.clone()
     oma = 1.0 - alpha
     tiny = 1e-30
     warm = warm.clone()
-    work = torch.zeros((N + 1, lo.Kw, plan.shape[-1]), dtype=plan.dtype,
-                       device=plan.device)
-    work[:, lo.X:lo.X + x] = warm[:, lo.zX:lo.zX + x]
-    work[:N, lo.U:lo.U + u] = warm[:N, lo.zU:lo.zU + u]
+    if carry:
+        work = work.clone()
+    else:
+        work = torch.zeros((N + 1, lo.Kw, plan.shape[-1]), dtype=plan.dtype,
+                           device=plan.device)
+        work[:, lo.X:lo.X + x] = warm[:, lo.zX:lo.zX + x]
+        work[:N, lo.U:lo.U + u] = warm[:N, lo.zU:lo.zU + u]
 
     def rows(t, off, n):            # n consecutive rows of a stage
         return t[off:off + n]
@@ -317,7 +323,7 @@ def _load() -> ctypes.CDLL:
     p, i, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.copra_stagewise_tick.restype = i
     lib.copra_stagewise_tick.argtypes = ([p] * 3 + [i] * 7 + [dbl] * 2
-                                         + [p] * 2)
+                                         + [p, i, p])
     lib.copra_stagewise_prepare.restype = i
     lib.copra_stagewise_prepare.argtypes = []
     lib.copra_stagewise_layout.restype = None
@@ -430,13 +436,14 @@ def _prepare(lib, dev) -> None:
 
 
 def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
-            plan_lf=None, work=None, skip=None):
+            plan_lf=None, work=None, skip=None, carry=False):
     """Check the lane-last tensors, make the kernel's lane-first copies
     (``plan_lf`` if given, and the state: warm | work per stage), launch
     it and return ``(warm', work)`` lane-last again.  With ``skip`` (a
-    one-element int32 flag on the device) the state also takes ``work``,
-    and the kernel returns at its entry when the flag is set, leaving
-    ``(warm, work)`` as given."""
+    one-element int32 flag on the device) or ``carry`` the state also
+    takes ``work``: the kernel returns at its entry when the flag is set,
+    leaving ``(warm, work)`` as given, and with ``carry`` it starts from
+    the work rows' ``X``, ``U`` as the proximal centre."""
     if n_iter < 0 or N < 1:
         raise ValueError(f"n_iter must be >= 0 and N >= 1, got {n_iter}, "
                          f"{N}")
@@ -466,15 +473,17 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
           or not plan_lf.is_contiguous()):
         raise ValueError(f"plan_lf must be lane_first_plan(plan), a "
                          f"contiguous {dt} [{nb}, {N + 1}, {Cp}] on {dev}")
+    if (skip is not None or carry) and work is None:
+        raise ValueError("skip and carry need the work tensor they keep")
     if skip is not None:
-        if work is None:
-            raise ValueError("skip needs the work tensor it keeps")
         if (skip.device != dev or skip.dtype != torch.int32
                 or skip.numel() != 1):
             raise ValueError(f"skip must be a one-element int32 tensor on "
                              f"{dev}, got {skip.dtype} {tuple(skip.shape)} "
                              f"on {skip.device}")
-        if tuple(work.shape) != (N + 1, lo.Kw, nb) or work.dtype != dt:
+    if work is not None:
+        if (tuple(work.shape) != (N + 1, lo.Kw, nb) or work.dtype != dt
+                or work.device != dev):
             raise ValueError(f"work must be a {dt} [{N + 1}, {lo.Kw}, "
                              f"{nb}] tensor, got {work.dtype} "
                              f"{tuple(work.shape)}")
@@ -483,13 +492,13 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
     with torch.cuda.device(dev):
         state = torch.empty((nb, N + 1, Wp + Kwp), dtype=dt, device=dev)
         state[:, :, :lo.W] = warm.permute(2, 0, 1)
-        if skip is not None:
+        if work is not None:
             state[:, :, Wp:Wp + lo.Kw] = work.permute(2, 0, 1)
         rc = lib.copra_stagewise_tick(
             plan_lf.data_ptr(), x0.data_ptr(), state.data_ptr(), nb, N, x, u,
             r, int(n_iter), int(dt == torch.float64), float(sigma),
             float(alpha), None if skip is None else skip.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(bool(carry)), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"stagewise tick kernel launch failed: CUDA error {rc} "
@@ -503,7 +512,8 @@ def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
                          sigma: float, alpha: float,
                          plan_lf: Optional[Tensor] = None,
                          work: Optional[Tensor] = None,
-                         skip: Optional[Tensor] = None
+                         skip: Optional[Tensor] = None,
+                         carry: bool = False
                          ) -> Tuple[Tensor, Tensor]:
     """Run ``n_iter`` stagewise-ADMM iterations in one kernel (the resident
     entry point: small per-stage dimensions, the N=300 ZMP class).
@@ -514,12 +524,13 @@ def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
     CPU tensors run :func:`stagewise_tick_plain`; CUDA tensors launch
     ``csrc/stagewise_tick.cu`` (see :func:`_launch`), on ``plan_lf``
     (:func:`lane_first_plan`) where the caller holds one.  ``skip`` and
-    ``work``: the device-side top-up decision (see
-    :func:`stagewise_tick_plain`); the launch happens, and counts, whether
-    or not the flag is set.
+    ``work``: the device-side top-up decision; ``carry`` and ``work``: a
+    run that continues from ``work``'s iterate (see
+    :func:`stagewise_tick_plain`).  The launch happens, and counts,
+    whether or not the flag is set.
     """
     kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha,
-              work=work, skip=skip)
+              work=work, skip=skip, carry=carry)
     if plan.device.type == "cpu":
         return stagewise_tick_plain(plan, x0, warm, **kw)
     out = _launch(plan, x0, warm, **kw, plan_lf=plan_lf)
@@ -533,13 +544,14 @@ def fused_stagewise_tick_streamed(plan: Tensor, x0: Tensor, warm: Tensor,
                                   r: int, sigma: float, alpha: float,
                                   plan_lf: Optional[Tensor] = None,
                                   work: Optional[Tensor] = None,
-                                  skip: Optional[Tensor] = None
+                                  skip: Optional[Tensor] = None,
+                                  carry: bool = False
                                   ) -> Tuple[Tensor, Tensor]:
     """The streamed entry point (robot-scale per-stage dimensions, the
     x = u = r = 12 quadruped class): the same kernel and arguments as
     :func:`fused_stagewise_tick`, counted apart."""
     kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha,
-              work=work, skip=skip)
+              work=work, skip=skip, carry=carry)
     if plan.device.type == "cpu":
         return stagewise_tick_plain(plan, x0, warm, **kw)
     out = _launch(plan, x0, warm, **kw, plan_lf=plan_lf)
@@ -558,7 +570,9 @@ class FusedStagewisePlan:
     """Precomputed fused-tick plan for a batched StagewiseQP: the packed
     ``plan [N+1, C, B]`` (gains folded in), the entry point ``mode``, the
     unridged problem's gains ``gains_raw`` for the clipped-unconstrained
-    seed sweep, and what the status pass needs after the kernel."""
+    seed sweep, what the status pass needs after the kernel, and with
+    ``options.polish_iters`` on float32 data the f64 polish's plan
+    (:class:`~copra_tpu_torch.ops.polish.PolishPlan`)."""
 
     plan: Tensor
     mode: str                 # "resident" | "streamed"
@@ -568,6 +582,7 @@ class FusedStagewisePlan:
     rho_x: Tensor             # [B, N+1, x]
     rho_u: Tensor             # [B, N, u]
     plan_lf: Optional[Tensor] = None   # lane_first_plan(plan) on CUDA
+    polish: "object" = None            # polish.PolishPlan or None
 
 
 def fused_mode(N: int, x: int, u: int, r: int, dtype) -> str:
@@ -607,6 +622,45 @@ def check_fused_envelope(N: int, x: int, u: int, r: int, dtype) -> None:
             f"make_stagewise_step(backend='xla'), or float32 data.")
 
 
+def pack_plan(sqp, gains: LQRGains, rho_x: Tensor, rho_u: Tensor, rows,
+              lower, upper) -> Tensor:
+    """Lay a batched problem, its ridged gains, penalties and normalized
+    rows out as the kernel's ``plan [N+1, C, B]`` (:class:`_Layout`).
+    ``lower``/``upper`` map the lower and upper bounds (state, control and
+    row) to the values the kernel clips with."""
+    nb = sqp.A.shape[0]
+    N, x, u, r = sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows
+    lo = _Layout(x, u, r)
+    cols = torch.zeros((nb, N + 1, lo.C), dtype=sqp.A.dtype,
+                       device=sqp.A.device)
+
+    def put(off, a, stages=N):
+        a = a.reshape(nb, stages, -1)
+        cols[:, :stages, off:off + a.shape[-1]] = a
+
+    put(lo.A, sqp.A)
+    put(lo.B, sqp.B)
+    put(lo.d, sqp.d)
+    put(lo.K, gains.K)
+    put(lo.nF, gains.nF)
+    put(lo.qb, torch.cat([sqp.qx[:, :-1] + gains.avd, sqp.qx[:, -1:]],
+                         dim=1), N + 1)
+    put(lo.rb, sqp.ru + gains.bvd)
+    put(lo.rhox, rho_x, N + 1)
+    put(lo.rhou, rho_u)
+    put(lo.xlb, lower(sqp.xlb), N + 1)
+    put(lo.xub, upper(sqp.xub), N + 1)
+    put(lo.ulb, lower(sqp.ulb))
+    put(lo.uub, upper(sqp.uub))
+    if rows is not None:
+        put(lo.Cx, rows.Cx)
+        put(lo.Cu, rows.Cu)
+        put(lo.slo, lower(rows.slo))
+        put(lo.shi, upper(rows.shi))
+        put(lo.rhos, rows.rho_s)
+    return cols.permute(1, 2, 0).contiguous()
+
+
 @highest_precision
 def build_fused_plan(sqp, options) -> FusedStagewisePlan:
     """Pack a (batched) StagewiseQP + options into a fused-tick plan.
@@ -618,17 +672,17 @@ def build_fused_plan(sqp, options) -> FusedStagewisePlan:
     ``finfo.max/4`` (an infinite bound times a zero elsewhere would mint
     NaNs) and count as finite below ``finfo.max/8``, the test the
     penalties use, so the gains' ridge and the kernel's z-step agree.
+    With ``options.polish_iters > 0`` on float32 data it also builds the
+    f64 polish's plan from this plan's penalties and rows
+    (:func:`~copra_tpu_torch.ops.polish.build_polish_plan`; a no-op for
+    float64 data, as in the reference).
     """
     from ..qp.riccati import _lead, _penalized
 
-    if getattr(options, "polish_iters", 0) > 0:
-        raise NotImplementedError(_POLISH)
     if sqp.A.dim() == 3:
         sqp = _lead(sqp)
-    nb = sqp.A.shape[0]
     N, x, u, r = sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows
     kd = dict(dtype=sqp.A.dtype, device=sqp.A.device)
-    lo = _Layout(x, u, r)
     fmax = torch.finfo(sqp.A.dtype).max
     big_test = fmax / 8
     rho = torch.tensor(float(options.rho), **kd)
@@ -644,39 +698,19 @@ def build_fused_plan(sqp, options) -> FusedStagewisePlan:
     gains_raw = None
     if options.seed != "zero":
         gains_raw = precompute_lqr_gains(sqp.A, sqp.B, sqp.d, sqp.Qx, sqp.Ru)
-
-    cols = torch.zeros((nb, N + 1, lo.C), **kd)
-
-    def put(off, a, stages=N):
-        a = a.reshape(nb, stages, -1)
-        cols[:, :stages, off:off + a.shape[-1]] = a
-
-    big_neg, big_pos = -fmax / 4, fmax / 4
-    put(lo.A, sqp.A)
-    put(lo.B, sqp.B)
-    put(lo.d, sqp.d)
-    put(lo.K, gains.K)
-    put(lo.nF, gains.nF)
-    put(lo.qb, torch.cat([sqp.qx[:, :-1] + gains.avd, sqp.qx[:, -1:]],
-                         dim=1), N + 1)
-    put(lo.rb, sqp.ru + gains.bvd)
-    put(lo.rhox, rho_x, N + 1)
-    put(lo.rhou, rho_u)
-    put(lo.xlb, sqp.xlb.clamp_min(big_neg), N + 1)
-    put(lo.xub, sqp.xub.clamp_max(big_pos), N + 1)
-    put(lo.ulb, sqp.ulb.clamp_min(big_neg))
-    put(lo.uub, sqp.uub.clamp_max(big_pos))
-    if rows is not None:
-        put(lo.Cx, rows.Cx)
-        put(lo.Cu, rows.Cu)
-        put(lo.slo, rows.slo.clamp_min(big_neg))
-        put(lo.shi, rows.shi.clamp_max(big_pos))
-        put(lo.rhos, rows.rho_s)
-    plan = cols.permute(1, 2, 0).contiguous()
+    plan = pack_plan(sqp, gains, rho_x, rho_u, rows,
+                     lambda t: t.clamp_min(-fmax / 4),
+                     lambda t: t.clamp_max(fmax / 4))
+    polish = None
+    if (getattr(options, "polish_iters", 0) > 0
+            and sqp.A.dtype == torch.float32):
+        from .polish import build_polish_plan
+        polish = build_polish_plan(sqp, rho_x, rho_u, rows, options)
     return FusedStagewisePlan(
         plan=plan, mode=fused_mode(N, x, u, r, sqp.A.dtype), sqp=sqp,
         gains_raw=gains_raw, rows=rows, rho_x=rho_x, rho_u=rho_u,
-        plan_lf=lane_first_plan(plan) if plan.is_cuda else None)
+        plan_lf=lane_first_plan(plan) if plan.is_cuda else None,
+        polish=polish)
 
 
 def _pack_warm(fp: FusedStagewisePlan, zX, zU, yX, yU, zS, yS) -> Tensor:
@@ -695,6 +729,35 @@ def _pack_warm(fp: FusedStagewisePlan, zX, zU, yX, yU, zS, yS) -> Tensor:
         w[:, :N, lo.zS:lo.zS + r] = zS
         w[:, :N, lo.yS:lo.yS + r] = yS
     return w.permute(1, 2, 0).contiguous()
+
+
+def _pack_work(fp: FusedStagewisePlan, X, U) -> Tensor:
+    """A proximal centre ``(X [B, N+1, x], U [B, N, u])`` -> the kernel's
+    work tensor [N+1, Kw, B] (``kk`` rows zero)."""
+    sqp = fp.sqp
+    nb = sqp.A.shape[0]
+    N, x, u = sqp.horizon, sqp.xdim, sqp.udim
+    lo = _Layout(x, u, sqp.nr_rows)
+    w = torch.zeros((nb, N + 1, lo.Kw), dtype=sqp.A.dtype,
+                    device=sqp.A.device)
+    w[:, :, lo.X:lo.X + x] = X
+    w[:, :N, lo.U:lo.U + u] = U
+    return w.permute(1, 2, 0).contiguous()
+
+
+def _unpack(warm_t: Tensor, work_t: Tensor, N: int, x: int, u: int,
+            r: int):
+    """The kernel's lane-last tensors -> lane-leading ``(X, U, zX, zU, yX,
+    yU, zS, yS)``."""
+    lo = _Layout(x, u, r)
+
+    def take(t, off, c, stages=N + 1):
+        return t[:stages, off:off + c].permute(2, 0, 1)
+
+    return (take(work_t, lo.X, x), take(work_t, lo.U, u, N),
+            take(warm_t, lo.zX, x), take(warm_t, lo.zU, u, N),
+            take(warm_t, lo.yX, x), take(warm_t, lo.yU, u, N),
+            take(warm_t, lo.zS, r, N), take(warm_t, lo.yS, r, N))
 
 
 @highest_precision
@@ -727,18 +790,29 @@ def _lane_residuals(sqp, options, rho_x: Tensor, rho_u: Tensor, rows, X, U,
 def solve_stagewise_fused(sqp, options, warm_start=None,
                           return_warm: bool = False,
                           plan: Optional[FusedStagewisePlan] = None):
-    """Drop-in for the batched ``solve_stagewise`` (fixed iteration count)
-    through the fused tick: the same update order, seeds, residuals and
-    statuses.  ``plan`` (from :func:`build_fused_plan`) skips the pack and
-    gains work; serving callers hold one per problem and tick with a fresh
-    ``x0``.  With ``options.topup_iters`` the whole batch runs that many
-    more iterations when any lane's delivered residuals miss the
-    tolerance.  That decision stays on the device: the top-up launch
-    always happens, on a state that holds the first run's warm and work
-    rows, and returns at its entry when every lane converged, so the first
-    run's values come back bit for bit and no tick syncs the host (a tick
-    can be captured in a CUDA graph).  The residuals are taken again after
-    it, as the reference does after its ``lax.cond``.
+    """Drop-in for the batched ``solve_stagewise`` through the fused tick:
+    the same update order, seeds, residuals and statuses.  ``plan`` (from
+    :func:`build_fused_plan`) skips the pack and gains work; serving
+    callers hold one per problem and tick with a fresh ``x0``.
+
+    Fixed count (``options.early_exit=False``, the serving tick): one
+    launch of ``max_iter`` iterations, then, with ``options.polish_iters``
+    on float32 data, the f64 polish of the delivered iterates
+    (:func:`~copra_tpu_torch.ops.polish.polish`, one f64 launch), and the
+    residuals of what is delivered.  With ``options.topup_iters`` the
+    whole batch runs that many more iterations from the first run's state,
+    and is polished again, when any lane's delivered residuals miss the
+    tolerance.  That decision stays on the device: the top-up launch (and
+    the re-polish) always happens, on a state that holds the first run's
+    warm and work rows, and returns at its entry when every lane
+    converged, so the first run's values come back bit for bit and no
+    tick syncs the host (a tick can be captured in a CUDA graph).  The
+    residuals are taken again after it, as the reference does after its
+    ``lax.cond``.
+
+    Early exit (``options.early_exit=True``): the chunked loop of
+    ``solve_stagewise`` (:func:`_solve_early_exit`), each chunk one
+    launch; no top-up and no polish, as there.
     """
     from ..qp.riccati import _initial_state, _lead, _result
 
@@ -747,11 +821,13 @@ def solve_stagewise_fused(sqp, options, warm_start=None,
         sqp = _lead(sqp)
         if warm_start is not None:
             warm_start = tuple(w.unsqueeze(0) for w in warm_start)
-    fp = plan if plan is not None else build_fused_plan(sqp, options)
+    if plan is None:
+        plan = build_fused_plan(sqp, options.replace(polish_iters=0)
+                                if options.early_exit else options)
+    fp = plan
     sqp = fp.sqp
     nb = sqp.A.shape[0]
     N, x, u, r = sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows
-    lo = _Layout(x, u, r)
     zX0, zU0, yX0, yU0, zS0, yS0 = _initial_state(
         sqp, options, warm_start, fp.rows,
         lambda: lqr_solve_fixed(fp.gains_raw, sqp.A, sqp.B, sqp.d, sqp.qx,
@@ -761,28 +837,42 @@ def solve_stagewise_fused(sqp, options, warm_start=None,
     entry = (fused_stagewise_tick if fp.mode == "resident"
              else fused_stagewise_tick_streamed)
 
-    def run(warm_t, n_iter, work_t=None, skip=None):
+    def run(warm_t, n_iter, work_t=None, skip=None, carry=False):
         return entry(fp.plan, x0, warm_t, n_iter=n_iter, N=N, x=x, u=u,
                      r=r, sigma=float(options.sigma),
                      alpha=float(options.alpha), plan_lf=fp.plan_lf,
-                     work=work_t, skip=skip)
-
-    def take(t, off, c, stages=N + 1):
-        return t[:stages, off:off + c].permute(2, 0, 1)
+                     work=work_t, skip=skip, carry=carry)
 
     def unpack(warm_t, work_t):
-        """Kernel tensors -> (X, U, zX, zU, yX, yU, zS, yS)."""
-        return (take(work_t, lo.X, x), take(work_t, lo.U, u, N),
-                take(warm_t, lo.zX, x), take(warm_t, lo.zU, u, N),
-                take(warm_t, lo.yX, x), take(warm_t, lo.yU, u, N),
-                take(warm_t, lo.zS, r, N), take(warm_t, lo.yS, r, N))
+        return _unpack(warm_t, work_t, N, x, u, r)
 
     def residuals(vals):
         return _lane_residuals(sqp, options, fp.rho_x, fp.rho_u, fp.rows,
                                *vals)
 
+    if options.early_exit:
+        vals, iters, infeas_code = _solve_early_exit(
+            sqp, options, fp.rows, run, unpack, residuals, warm0,
+            _pack_work(fp, zX0, zU0))
+        return _result(sqp, fp.rows, vals[0], vals[1], vals[2:],
+                       residuals(vals), iters, infeas_code, single,
+                       return_warm)
+
+    n_polish = (int(getattr(options, "polish_iters", 0))
+                if fp.polish is not None else 0)
+
+    def deliver(warm_t, work_t, skip=None):
+        """The delivered iterates: the kernel's, polished in f64 when the
+        options ask for it."""
+        if n_polish > 0:
+            from .polish import polish
+            warm_t, work_t = polish(fp.polish, entry, x0, warm_t, work_t,
+                                    n_iter=n_polish, N=N, x=x, u=u, r=r,
+                                    options=options, skip=skip)
+        return unpack(warm_t, work_t)
+
     warm1, work = run(warm0, options.max_iter)
-    vals = unpack(warm1, work)
+    vals = deliver(warm1, work)
     res = residuals(vals)
     topup = int(getattr(options, "topup_iters", 0))
     if topup > 0:
@@ -790,9 +880,69 @@ def solve_stagewise_fused(sqp, options, warm_start=None,
         # converged; converged lanes of a tick that runs it sit at their
         # fixed point
         skip = res[2].all().to(torch.int32)
-        vals = unpack(*run(warm1, topup, work, skip))
+        more = deliver(*run(warm1, topup, work, skip), skip=skip)
+        if n_polish > 0:
+            # a skipped re-polish returns the unpolished state it was
+            # given: keep the first polish's values then
+            vals = tuple(torch.where(skip > 0, a, b)
+                         for a, b in zip(vals, more))
+        else:
+            vals = more
         res = residuals(vals)
     iters = torch.full((nb,), int(options.max_iter), dtype=torch.int32,
                        device=sqp.A.device)
     return _result(sqp, fp.rows, vals[0], vals[1], vals[2:], res, iters,
                    torch.zeros_like(iters), single, return_warm)
+
+
+def _solve_early_exit(sqp, options, rows, run, unpack, residuals, warm0,
+                      work0):
+    """The early-exit loop of ``solve_stagewise`` on the kernel: chunks of
+    ``min(check_interval, max_iter - iters)`` iterations, each one launch
+    that continues the last (``carry``: its proximal centre is the last
+    iterate, as in the unbroken loop), a residual check after each, and
+    with ``infeasibility_detection`` the certificate of one more iteration,
+    run on a copy.  A lane freezes once it converged or confirmed a
+    certificate (two consecutive checks agree): the ``torch.where`` select
+    of the plain loop.  Returns the delivered iterates, the iterations per
+    lane and the certificate codes.  The loop's exit is a host check, one
+    sync a chunk."""
+    from ..qp.riccati import _infeas_cert, _lane_max
+
+    nb, dev = sqp.A.shape[0], sqp.A.device
+    kd = dict(dtype=sqp.A.dtype, device=dev)
+    a_scale = torch.maximum(torch.maximum(_lane_max(sqp.A.abs()),
+                                          _lane_max(sqp.B.abs())),
+                            torch.ones((), **kd))
+    chunk = max(1, min(int(options.check_interval), int(options.max_iter)))
+    izero = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    done = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    iters, infeas_code, pend = izero, izero, izero
+    warm_t, work_t = warm0, work0
+    state8 = lambda v: v[2:] + v[:2]
+    while True:
+        active = (~done) & (iters < options.max_iter)
+        if not bool(active.any()):
+            break
+        todo = min(chunk, int(options.max_iter) - int(iters[active].max()))
+        warm_n, work_n = run(warm_t, todo, work_t, carry=True)
+        new = unpack(warm_n, work_n)
+        conv = residuals(new)[2]
+        if options.infeasibility_detection:
+            ext = unpack(*run(warm_n, 1, work_n, carry=True))
+            infeas = _infeas_cert(sqp, options, rows, a_scale, state8(new),
+                                  state8(ext))
+        else:
+            infeas = izero
+        confirmed = torch.where((infeas > 0) & (infeas == pend), infeas,
+                                izero)
+        lane = active.view(1, 1, nb)
+        warm_t = torch.where(lane, warm_n, warm_t)
+        work_t = torch.where(lane, work_n, work_t)
+        done = torch.where(active, conv | (confirmed > 0), done)
+        iters = torch.where(active, iters + todo, iters)
+        infeas_code = torch.where(active,
+                                  torch.maximum(infeas_code, confirmed),
+                                  infeas_code)
+        pend = torch.where(active, infeas, pend)
+    return unpack(warm_t, work_t), iters, infeas_code

@@ -20,11 +20,16 @@ parallel dual residual) run :func:`~copra_tpu_torch._scan.associative_scan`.
 :func:`make_stagewise_multistep` serves a chain of ticks, on a CUDA device
 as one CUDA graph.
 
-Not ported here: ``auto_rho_stagewise``/``auto_iters_stagewise`` and
-``make_stagewise_server``.  Dropped: ``warn_if_emulated_f64`` (the H100 has
-FP64), the module-level jit caches and their ``TICK_TRACE_COUNTERS``
-(PyTorch runs eagerly; the multistep chain keeps one graph per chain
-length).
+On a CUDA device an early-exit :func:`solve_stagewise` runs on the
+stagewise tick kernel in chunks (``ops.stagewise_kernel.
+solve_stagewise_fused``); the measured serving policies
+(:func:`auto_rho_stagewise`, :func:`auto_iters_stagewise`) and the
+no-knobs :func:`make_stagewise_server` build on it.  Dropped:
+``warn_if_emulated_f64`` (the H100 has FP64), pinning the policies' probes
+to the CPU (the reference's f64 oracle could not run on the TPU; here it
+runs on the problem's device), the module-level jit caches and their
+``TICK_TRACE_COUNTERS`` (PyTorch runs eagerly; the multistep chain keeps
+one graph per chain length).
 """
 
 from __future__ import annotations
@@ -673,9 +678,30 @@ def solve_stagewise(sqp: StagewiseQP,
     iteration's w-update, with the ridged stage Hessians and the rows'
     cross term) through :func:`lqr_solve_assoc` in place of the serial
     sweeps with precomputed gains.
+
+    On a CUDA device the early-exit solve (without ``parallel_scan``) runs
+    on the stagewise tick kernel, one launch a chunk
+    (``ops.stagewise_kernel.solve_stagewise_fused``): the same iterations,
+    statuses and iterates.  A problem outside the kernel's envelope
+    raises there; ``parallel_scan=True`` keeps the plain loop on the
+    device.  On CPU tensors, and for the fixed count, the plain loop runs.
     """
     from ..ops.stagewise_kernel import (_lane_residuals, lqr_solve_fixed,
                                         precompute_lqr_gains)
+
+    if options.early_exit and not parallel_scan and sqp.A.is_cuda:
+        from ..ops.stagewise_kernel import (check_fused_envelope,
+                                            solve_stagewise_fused)
+        try:
+            check_fused_envelope(sqp.horizon, sqp.xdim, sqp.udim,
+                                 sqp.nr_rows, sqp.A.dtype)
+        except ValueError as e:
+            raise ValueError(
+                f"solve_stagewise: on a CUDA device the early-exit solve "
+                f"runs on the stagewise tick kernel, and this problem is "
+                f"outside its envelope ({e}).  parallel_scan=True runs the "
+                f"plain loop on the device; CPU tensors run it too.") from e
+        return solve_stagewise_fused(sqp, options, warm_start, return_warm)
 
     single = sqp.A.dim() == 3
     if single:
@@ -744,47 +770,7 @@ def solve_stagewise(sqp: StagewiseQP,
                             torch.ones((), **kd))
 
     def infeas_cert(state, state_e):
-        """Per-lane primal-infeasibility certificate from one iteration's
-        dual deltas (the adjoint restricted to the dynamics-feasible
-        subspace; the support carries the offset ``<dy, C w>`` of the
-        current LQR iterate)."""
-        dyX = state_e[2] - state[2]
-        dyU = state_e[3] - state[3]
-        dyS = state_e[5] - state[5]
-        X, U = state_e[6], state_e[7]
-        dy_norm = torch.maximum(torch.maximum(_lane_max(dyX.abs()),
-                                              _lane_max(dyU.abs())),
-                                _lane_max(dyS.abs()))
-        if rows is not None:
-            gx = torch.einsum("bkrx,bkr->bkx", rows.Cx, dyS)
-            gu = torch.einsum("bkru,bkr->bku", rows.Cu, dyS)
-        lam = dyX[:, N]
-        adj = torch.zeros((nb,), **kd)
-        for k in range(N - 1, -1, -1):
-            r_u = _mtv(sqp.B[:, k], lam) + dyU[:, k]
-            lam_k = _mtv(sqp.A[:, k], lam) + dyX[:, k]
-            if rows is not None:
-                r_u = r_u + gu[:, k]
-                lam_k = lam_k + gx[:, k]
-            adj = torch.maximum(adj, r_u.abs().amax(-1))
-            lam = lam_k
-        zero = torch.zeros((), **kd)
-        dX = dyX[:, 1:]
-        sup = (_lane_sum(torch.where(dX > 0, sqp.xub[:, 1:], zero) * dX
-                         + torch.where(dX < 0, sqp.xlb[:, 1:], zero) * dX)
-               + _lane_sum(torch.where(dyU > 0, sqp.uub, zero) * dyU
-                           + torch.where(dyU < 0, sqp.ulb, zero) * dyU))
-        off = _lane_sum(dX * X[:, 1:]) + _lane_sum(dyU * U)
-        if rows is not None:
-            sup = sup + _lane_sum(
-                torch.where(dyS > 0, rows.shi, zero) * dyS
-                + torch.where(dyS < 0, rows.slo, zero) * dyS)
-            off = off + _lane_sum(dyS * rows.eval(X, U))
-        tiny = 1e-30
-        prim = ((adj <= options.eps_prim_inf * a_scale
-                 * dy_norm.clamp_min(tiny))
-                & (sup - off <= -1e-3 * dy_norm) & (dy_norm > tiny))
-        return torch.where(prim, STATUS_PRIMAL_INFEASIBLE, 0).to(torch.int32)
+        return _infeas_cert(sqp, options, rows, a_scale, state, state_e)
 
     izero = torch.zeros((nb,), dtype=torch.int32, device=dev)
     state = warm0 + warm0[:2]
@@ -838,6 +824,49 @@ def solve_stagewise(sqp: StagewiseQP,
     return _result(sqp, rows, state[6], state[7], state[:6],
                    residuals(state), iters, infeas_code, single,
                    return_warm)
+
+
+def _infeas_cert(sqp: StagewiseQP, options: SolverOptions,
+                 rows: Optional[_Rows], a_scale: Tensor, state,
+                 state_e) -> Tensor:
+    """Per-lane primal-infeasibility certificate of a batched problem from
+    one iteration's dual deltas (the adjoint restricted to the
+    dynamics-feasible subspace; the support carries the offset ``<dy, C
+    w>`` of the current LQR iterate).  ``state`` and ``state_e`` are
+    ``(zX, zU, yX, yU, zS, yS, X, U)`` before and after the iteration.
+    The adjoint recursion is that of :func:`stagewise_dual_residual` on
+    costs set to zero, taken as its log-depth scan."""
+    kd = dict(dtype=sqp.A.dtype, device=sqp.A.device)
+    dyX = state_e[2] - state[2]
+    dyU = state_e[3] - state[3]
+    dyS = state_e[5] - state[5]
+    X, U = state_e[6], state_e[7]
+    dy_norm = torch.maximum(torch.maximum(_lane_max(dyX.abs()),
+                                          _lane_max(dyU.abs())),
+                            _lane_max(dyS.abs()))
+    free = dataclasses.replace(
+        sqp, Qx=torch.zeros_like(sqp.Qx), qx=torch.zeros_like(sqp.qx),
+        Ru=torch.zeros_like(sqp.Ru), ru=torch.zeros_like(sqp.ru))
+    adj = stagewise_dual_residual(
+        free, X, U, dyX, dyU, None if rows is None else dyS * rows.Es,
+        parallel=True)
+    zero = torch.zeros((), **kd)
+    dX = dyX[:, 1:]
+    sup = (_lane_sum(torch.where(dX > 0, sqp.xub[:, 1:], zero) * dX
+                     + torch.where(dX < 0, sqp.xlb[:, 1:], zero) * dX)
+           + _lane_sum(torch.where(dyU > 0, sqp.uub, zero) * dyU
+                       + torch.where(dyU < 0, sqp.ulb, zero) * dyU))
+    off = _lane_sum(dX * X[:, 1:]) + _lane_sum(dyU * U)
+    if rows is not None:
+        sup = sup + _lane_sum(
+            torch.where(dyS > 0, rows.shi, zero) * dyS
+            + torch.where(dyS < 0, rows.slo, zero) * dyS)
+        off = off + _lane_sum(dyS * rows.eval(X, U))
+    tiny = 1e-30
+    prim = ((adj <= options.eps_prim_inf * a_scale
+             * dy_norm.clamp_min(tiny))
+            & (sup - off <= -1e-3 * dy_norm) & (dy_norm > tiny))
+    return torch.where(prim, STATUS_PRIMAL_INFEASIBLE, 0).to(torch.int32)
 
 
 def _dual_scale(sqp: StagewiseQP) -> Tensor:
@@ -1037,7 +1066,10 @@ def _fused_tick_exec(plan, sqp, scale, x0, warm, options):
     from ..ops.stagewise_kernel import solve_stagewise_fused
     x0, unscale = _scale_io(scale, x0)
     s = dataclasses.replace(sqp, x0=x0)
-    out = solve_stagewise_fused(s, options, warm_start=warm,
+    # a serving tick is the fixed count, whatever options.early_exit says
+    # (the reference's fused tick has no early exit)
+    out = solve_stagewise_fused(s, options.replace(early_exit=False),
+                                warm_start=warm,
                                 return_warm=True,
                                 plan=dataclasses.replace(plan, sqp=s))
     return unscale(out)
@@ -1233,15 +1265,258 @@ def make_stagewise_step(sqp: StagewiseQP,
         check_fused_envelope(sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows,
                              sqp.A.dtype)
     if backend != "fused" and getattr(options, "polish_iters", 0) > 0:
+        # the f64 polish continues the kernel's delivered iterate: a
+        # plain-path tick serving the unpolished iteration says so
         warnings.warn(
-            "make_stagewise_step: options.polish_iters is a fused-backend "
-            "feature (not yet ported: ROADMAP queue 1, the f64 polish); "
-            "this tick serves the plain iteration.", stacklevel=2)
+            "make_stagewise_step: options.polish_iters is applied by the "
+            "FUSED backend only; this plain-path tick serves the plain "
+            "float32 iteration (~2e-5 floor on stiff problems).  Use "
+            "backend='fused', or float64 data.", stacklevel=2)
     sqp_b = sqp if batched else _lead(sqp)
     if swap_options is None:
         swap_options = cold_options
     return StagewiseTick(sqp_b, batched, backend, options, cold_options,
                          swap_options, scale, parallel_scan)
+
+
+def _curvature_spread(sqp: StagewiseQP) -> float:
+    """max / min of the positive diagonal entries of the stage Hessians
+    ``Qx`` and ``Ru`` (host-side): the cheap predictor of whether
+    equilibration is needed (forces O(100 N) against states O(0.1), the
+    config-6 regime, stall raw ADMM)."""
+    d = np.abs(np.concatenate([
+        torch.diagonal(t, dim1=-2, dim2=-1).detach().cpu().numpy()
+        .astype(np.float64).ravel() for t in (sqp.Qx, sqp.Ru)]))
+    d = d[d > 0]
+    return float(d.max() / d.min()) if d.size else 1.0
+
+
+def _probe_setup(sqp: StagewiseQP, probe_lanes: int, probe_steps: int,
+                 drift_scale):
+    """Probe scaffolding of the measured serving policies: ``probe_lanes``
+    lanes spread over the batch and a drifting receding-horizon ``x0``
+    sequence (consecutive ticks one small step apart, the deployment
+    pattern), drawn from ``np.random.default_rng(0)`` as the reference
+    draws it, so both probes see the same states.  ``drift_scale`` is a
+    scalar or a per-coordinate ``[x]`` vector (a caller probing an
+    equilibrated problem passes the physical drift mapped into scaled
+    space).  Returns ``(sqp_p, nl, x0_p, drift, x0_seq)``; ``x0_seq``
+    tensors on the problem's device in its dtype."""
+    sqp_b = sqp if sqp.A.dim() == 4 else _lead(sqp)
+    nb = sqp_b.A.shape[0]
+    idx = np.unique(np.linspace(0, nb - 1,
+                                min(probe_lanes, nb)).astype(int))
+    sel = torch.as_tensor(idx, device=sqp_b.A.device)
+    sqp_p = StagewiseQP(**{
+        f.name: None if getattr(sqp_b, f.name) is None
+        else getattr(sqp_b, f.name).index_select(0, sel)
+        for f in dataclasses.fields(StagewiseQP)})
+    nl, x = len(idx), sqp_p.xdim
+    rng = np.random.default_rng(0)
+    drift = rng.normal(scale=np.broadcast_to(
+        np.asarray(drift_scale, np.float64), (x,)),
+        size=(probe_steps + 1, nl, x)).cumsum(0)
+    x0_p = sqp_p.x0.detach().cpu().numpy().astype(np.float64)
+    np_dt = sqp_p.x0.detach().cpu().numpy().dtype
+    x0_seq = [torch.tensor((x0_p + drift[t]).astype(np_dt),
+                           device=sqp_p.x0.device)
+              for t in range(probe_steps + 1)]
+    return sqp_p, nl, x0_p, drift, x0_seq
+
+
+def _probe_exact(sqp_p: StagewiseQP, nl: int, x0_p, drift,
+                 options: SolverOptions, parallel_scan: bool):
+    """The exactness reference every candidate is gated against: float64
+    early-exit solves of the probe lanes at the final probe state, with
+    ``max(200 max_iter, 20000)`` iterations at ``eps_abs = min(eps_abs,
+    1e-8)``.  Runs on the problem's device (the reference pins it to the
+    CPU, where its TPU had no float64; here the CPU loop is Python): on a
+    CUDA device the float64 tick kernel in chunks (:func:`solve_stagewise`),
+    every lane of one batched solve, each stopping at its own
+    convergence.  Returns one ``U [N, u]`` numpy array a lane."""
+    sqp64 = StagewiseQP(**{
+        f.name: None if getattr(sqp_p, f.name) is None
+        else getattr(sqp_p, f.name).to(torch.float64)
+        for f in dataclasses.fields(StagewiseQP)})
+    oracle_opts = options.replace(
+        max_iter=max(200 * options.max_iter, 20_000), early_exit=True,
+        eps_abs=min(options.eps_abs, 1e-8), eps_rel=0.0)
+    x0 = torch.tensor(x0_p + drift[-1], dtype=torch.float64,
+                      device=sqp64.A.device)
+    _, U_e, _ = solve_stagewise(dataclasses.replace(sqp64, x0=x0),
+                                oracle_opts, parallel_scan=parallel_scan)
+    U_e = U_e.cpu().numpy()
+    return [U_e[k] for k in range(nl)]
+
+
+def _probe_ticks(sqp_p: StagewiseQP, x0_seq, options: SolverOptions,
+                 cold_options: Optional[SolverOptions],
+                 parallel_scan: bool) -> np.ndarray:
+    """The real cold-then-warm tick pattern over ``x0_seq`` on the probe
+    lanes; the last tick's ``U`` in float64.  The ticks run the fused
+    backend on a CUDA device and the plain one on the CPU (the two are
+    update-identical), without the polish: the probes measure the plain
+    iteration, as the reference's do."""
+    backend = ("fused" if sqp_p.A.is_cuda and not parallel_scan
+               else "xla")
+    options = options.replace(polish_iters=0)
+    if cold_options is not None:
+        cold_options = cold_options.replace(polish_iters=0)
+    tick = make_stagewise_step(sqp_p, options, cold_options=cold_options,
+                               parallel_scan=parallel_scan, backend=backend)
+    warm = U = None
+    for x0 in x0_seq:
+        _, U, _, warm = tick(x0, warm)
+    return U.double().cpu().numpy()
+
+
+def auto_rho_stagewise(sqp: StagewiseQP,
+                       options: SolverOptions = SolverOptions(),
+                       cold_options: Optional[SolverOptions] = None,
+                       probe_lanes: int = 2,
+                       probe_steps: int = 3,
+                       candidates=(0.03, 0.1, 0.3, 1.0, 3.0),
+                       drift_scale: float = 0.002,
+                       parallel_scan: bool = False,
+                       return_probe: bool = False):
+    """Measured static ADMM penalty for fixed-count stagewise serving.
+
+    Runs the real cold+warm tick pattern (``options`` budget) at each
+    candidate penalty over ``probe_lanes`` lanes spread over the batch,
+    gates each against the float64 high-budget early-exit oracle of the
+    same problems (:func:`_probe_exact`) and returns the ``rho`` whose
+    last tick's controls are closest (with ``return_probe=True`` also the
+    ``{candidate: max |U - U_exact|}`` probe).  Candidates are absolute:
+    rows are L2-normalized inside the solver, so the penalty is
+    dimensionless against unit-norm rows.  A one-time build cost.  Probe
+    a batched fleet: a one-lane probe can pick a penalty tuned to one
+    ``x0`` that fails fleet-wide.
+
+    The probe runs on the problem's device: on a CUDA device the ticks on
+    the stagewise tick kernel and the oracle on its float64 early-exit
+    route.
+    """
+    sqp_p, nl, x0_p, drift, x0_seq = _probe_setup(
+        sqp, probe_lanes, probe_steps, drift_scale)
+    exact = _probe_exact(sqp_p, nl, x0_p, drift, options, parallel_scan)
+    probe = {}
+    for cand in candidates:
+        U = _probe_ticks(
+            sqp_p, x0_seq, options.replace(rho=float(cand)),
+            None if cold_options is None
+            else cold_options.replace(rho=float(cand)), parallel_scan)
+        probe[cand] = max(float(np.abs(U[k] - exact[k]).max())
+                          for k in range(nl))
+    best = min(probe, key=probe.get)
+    if return_probe:
+        return float(best), probe
+    return float(best)
+
+
+def auto_iters_stagewise(sqp: StagewiseQP,
+                         options: SolverOptions = SolverOptions(),
+                         cold_options: Optional[SolverOptions] = None,
+                         probe_lanes: int = 2,
+                         probe_steps: int = 3,
+                         candidates=(10, 20, 30, 50, 80, 120, 200),
+                         target_applied_err: float = 1e-5,
+                         drift_scale: float = 0.002,
+                         parallel_scan: bool = False,
+                         return_probe: bool = False,
+                         target_tail_err: Optional[float] = None):
+    """Measured warm-tick iteration budget for receding-horizon serving.
+
+    Runs the real cold+warm tick pattern over a drifting ``x0`` sequence
+    on the probe lanes for each candidate iteration count and measures
+    the error of the applied control ``U[0]`` (and of the whole horizon,
+    ``tail_err``) against the float64 oracle at the same state.  Returns
+    the smallest candidate whose ``applied_err`` meets
+    ``target_applied_err`` (and, when given, whose ``tail_err`` meets
+    ``target_tail_err``, the gate of throughput lines that span the whole
+    control vector); if none does, the candidate with the smallest error
+    (``tail_err`` when a tail target is given, else ``applied_err``).
+    ``return_probe=True`` also returns the measured Pareto, candidate ->
+    ``{"applied_err", "tail_err"}``.
+
+    The probe does not apply ``options.polish_iters``: the errors are
+    those of the plain float32 iteration.  When the serving options
+    polish, pick targets at the pre-polish floor (e.g.
+    ``target_tail_err=3e-5``) and gate the delivered accuracy apart.
+    Runs on the problem's device, as :func:`auto_rho_stagewise`.
+    """
+    sqp_p, nl, x0_p, drift, x0_seq = _probe_setup(
+        sqp, probe_lanes, probe_steps, drift_scale)
+    exact = _probe_exact(sqp_p, nl, x0_p, drift, options, parallel_scan)
+    probe = {}
+    for cand in sorted(int(c) for c in candidates):
+        U = _probe_ticks(sqp_p, x0_seq, options.replace(max_iter=cand),
+                         cold_options, parallel_scan)
+        probe[cand] = {
+            "applied_err": max(float(np.abs(U[k][0] - exact[k][0]).max())
+                               for k in range(nl)),
+            "tail_err": max(float(np.abs(U[k] - exact[k]).max())
+                            for k in range(nl)),
+        }
+    meeting = [c for c, e in probe.items()
+               if e["applied_err"] <= target_applied_err
+               and (target_tail_err is None
+                    or e["tail_err"] <= target_tail_err)]
+    rank = (lambda c: probe[c]["tail_err"]) if target_tail_err \
+        else (lambda c: probe[c]["applied_err"])
+    best = min(meeting) if meeting else min(probe, key=rank)
+    if return_probe:
+        return int(best), probe
+    return int(best)
+
+
+def make_stagewise_server(sqp: StagewiseQP, *,
+                          target_applied_err: float = 1e-5,
+                          drift_scale=0.002,
+                          backend: str = "auto",
+                          parallel_scan: bool = False,
+                          return_policy: bool = False):
+    """No-knobs serving facade: one call in place of the hand-assembled
+    recipe.  It measures whether curvature equilibration is warranted
+    (:func:`stagewise_scales` when the stage Hessians' diagonal spread
+    exceeds 1e4, the quadruped force-against-state regime), measures the
+    serving ``rho`` (:func:`auto_rho_stagewise`) and the warm iteration
+    budget for the applied-control contract (:func:`auto_iters_stagewise`),
+    both with 4 probe lanes and 2000-iteration cold ticks at ``eps_abs =
+    max(target_applied_err, 25 eps(dtype))``, arms a top-up of 4 times
+    the warm budget, and returns the :class:`StagewiseTick`.
+
+    ``drift_scale`` is the per-tick ``x0`` drift of the deployment in
+    physical units (mapped into the scaled space for the probes).
+    ``return_policy=True`` also returns ``{"rho", "warm_iters", "scaled",
+    "options"}``.
+    """
+    sqp_b = sqp if sqp.A.dim() == 4 else _lead(sqp)
+    scale = stagewise_scales(sqp_b) if _curvature_spread(sqp_b) > 1e4 \
+        else None
+    probe = sqp_b if scale is None else scale_stagewise(sqp_b, *scale)
+    p_drift = (drift_scale if scale is None
+               else np.asarray(drift_scale, np.float64)
+               / scale[0].detach().cpu().numpy().astype(np.float64))
+    eps_abs = max(float(target_applied_err),
+                  25.0 * float(torch.finfo(sqp_b.A.dtype).eps))
+    cold = SolverOptions(max_iter=2000, early_exit=False, polish=False,
+                         eps_abs=eps_abs)
+    rho = auto_rho_stagewise(probe, cold.replace(max_iter=30),
+                             cold_options=cold, probe_lanes=4,
+                             drift_scale=p_drift)
+    cold = cold.replace(rho=float(rho))
+    witers = auto_iters_stagewise(probe, cold, cold_options=cold,
+                                  probe_lanes=4,
+                                  target_applied_err=target_applied_err,
+                                  drift_scale=p_drift)
+    wopts = cold.replace(max_iter=witers, topup_iters=4 * witers)
+    tick = make_stagewise_step(sqp, wopts, cold_options=cold,
+                               parallel_scan=parallel_scan, backend=backend,
+                               scaling="none" if scale is None else scale)
+    if return_policy:
+        return tick, {"rho": float(rho), "warm_iters": int(witers),
+                      "scaled": scale is not None, "options": wopts}
+    return tick
 
 
 class StagewiseMultistep:

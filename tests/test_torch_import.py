@@ -19,7 +19,9 @@ import copra_tpu_torch.profiling, copra_tpu_torch.parallel
 import copra_tpu_torch.parallel.batch, copra_tpu_torch.ops.stagewise_kernel
 import copra_tpu_torch.qp.riccati, copra_tpu_torch._scan
 import copra_tpu_torch._graph, copra_tpu_torch.ops.counts
+import copra_tpu_torch.solve, copra_tpu_torch.ops.polish
 copra_tpu_torch.make_plan_multistep, copra_tpu_torch.make_stagewise_multistep
+copra_tpu_torch.solve, copra_tpu_torch.make_stagewise_server
 copra_tpu_torch.LMPC, copra_tpu_torch.solve_qp_batched
 copra_tpu_torch.solve_mpc_batch, copra_tpu_torch.get_solver
 bad = sorted(m for m in sys.modules
@@ -59,14 +61,13 @@ def test_precision_context_turns_tf32_off_and_restores():
 
 
 def test_public_names_still_to_port():
-    """The reference's public names the port lacks are exactly the ones
-    ROADMAP.md still lists; each export of the port resolves."""
+    """The port exports every public name of the reference (none is left
+    to port); each export of the port resolves."""
     import copra_tpu
     import copra_tpu_torch
 
     missing = set(copra_tpu.__all__) - set(copra_tpu_torch.__all__)
-    assert missing == {"solve", "make_stagewise_server",
-                       "auto_rho_stagewise", "auto_iters_stagewise"}
+    assert missing == set()
     for name in copra_tpu_torch.__all__:
         assert getattr(copra_tpu_torch, name) is not None, name
 

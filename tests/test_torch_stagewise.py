@@ -408,8 +408,13 @@ def test_wrappers_on_cpu_take_the_plain_version_and_options_raise():
     sk.check_fused_envelope(10, 4, 1, 2, torch.float32)   # any (x, u, r)
     with pytest.raises(ValueError, match="envelope"):
         sk.check_fused_envelope(10, 100, 20, 9, torch.float32)
-    with pytest.raises(NotImplementedError, match="f64 polish"):
-        sk.build_fused_plan(_port(f), opts.replace(polish_iters=2))
+    # the f64 polish is ported: a float32 plan carries its float64 plan;
+    # on float64 data the polish is a no-op, as in the reference
+    assert sk.build_fused_plan(_port(f), opts.replace(
+        polish_iters=2)).polish is None
+    f32 = {k: v.astype(np.float32) for k, v in f.items()}
+    assert sk.build_fused_plan(_port(f32), opts.replace(
+        polish_iters=2)).polish.plan.dtype == torch.float64
     # the log-depth sweeps are ported: parallel_scan=True serves
     _, U_scan, info_scan = tr.solve_stagewise(_port(f), opts,
                                               parallel_scan=True)
