@@ -150,8 +150,13 @@ Phases, one line or more each:
     chained controls against the eager per-tick loop (<= 1e-12), the last
     tick against the native oracle on lanes 0, 1, 17, 4095 (<= 1e-5);
     host and device ms per tick over 5 replays, the capture's seconds,
-    the launches a replay and a profile of one replay (kernel time by
-    name, the kernels' busy time against the span: the idle share);
+    the launches a replay and a profile of one replay inside a
+    ``profiling.trace_span`` (a ``torch.profiler`` Chrome trace, kept under
+    ``smoke_out/traces``, read by ``profiling.trace_device_time``: kernel
+    time by name, the kernels' busy time as the interval union per stream
+    against the span, <= 1.03 x it: the idle share, beside the sum of
+    durations; K1's kernels among the top 8 ops and the span's name in the
+    trace);
 21. configs 6 and 5 chained through ``make_stagewise_multistep``
     (``backend="fused"``, the served options and scales), 9 ticks a CUDA
     graph: the ``x0_seq`` chain of phases 6/7's states, held against the
@@ -161,9 +166,9 @@ Phases, one line or more each:
     cold start, gated at the last state it solved (<= 1e-4); a replan (a
     5% drift of the linear state costs) held against a fresh facade on the
     new data with no new capture; host and device ms per tick, the
-    capture's seconds, launches a replay, a profile of one replay, the
-    status pass's ms (eager and by graph replay) and the ticks whose
-    top-up ran;
+    capture's seconds, launches a replay, a profile of one replay (as in
+    phase 20, the tick kernel among the top 8 ops), the status pass's ms
+    (eager and by graph replay) and the ticks whose top-up ran;
 22. the log-depth forms on the card against their serial forms in float64
     (relative 1e-9), each timed beside it: ``condense_ltv_assoc`` at
     config 4's width, ``lqr_solve_assoc`` with the rows' cross term at
@@ -195,7 +200,34 @@ Phases, one line or more each:
     native oracle at 1e-5 relative: config 8's problem on the condensed
     route (N = 100, float64), the automatic stagewise route at N = 400
     (K4's early-exit solves), the direct LQR route (``iterations == 1``)
-    and float32 data routed to the native engine; ms per solve.
+    and float32 data routed to the native engine; ms per solve;
+27. the closed loop: config 4's fleet in float64 through
+    ``receding.closed_loop``'s rebuild route (default options, 5 ticks,
+    the 4096 lanes as one batch, each lane's plant its own stage 0): the
+    controls of lanes 0, 1, 17 and 4095 at every tick, and their whole
+    plans, against the native oracle on that lane's QP at the realized
+    state (<= 1e-5), the plant identity, host ms a tick; lane 0 through
+    ``use_plan=True`` for 20 ticks against the rebuild route (states
+    2e-4, controls 2e-3, the reference's test);
+28. resume from a checkpoint: phase 27's loop again through
+    ``make_receding_step``, the warm state at tick 2 saved as npz and
+    through ``torch.distributed.checkpoint``, loaded onto the card, 3
+    ticks resumed from each equal to the unbroken run bit for bit; the
+    same for config 5's stagewise warm tuple (K4); file sizes, save and
+    load ms;
+29. ``solve_metrics`` of phase 27's last tick against a numpy
+    recomputation (the traces of phases 20 and 21 are where
+    ``trace_span`` and ``trace_device_time`` are gated);
+30. the port's examples (``examples/torch_*.py``) at their default sizes
+    with their own checks as gates: getting started (v <= 0, force <= 200
+    N), the bipedal preview (the ZMP inside the polygon) and fleet (every
+    lane converged; K4), the quadruped fleet (every lane converged, the
+    friction cones and height corridor; K5) and fleet serving (converged
+    share >= 0.85; K4); the servers' ticks timed (each example records
+    them); the tick kernel against its plain version on one served tick's
+    plan and inputs of the fleet-serving chain (K4, x = 2, u = 1, N = 12,
+    16 lanes) and of the quadruped server (K5, 16 friction rows and the
+    state corridor), at phases 5-7's tolerances.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  A chain's
@@ -215,6 +247,8 @@ does a run without a CUDA device or outside the repository.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -870,6 +904,35 @@ def _stagewise_held(sk, args, kw, entry, reps: int = 5, served=False):
             ev[0].elapsed_time(ev[1]), _nbytes(*args, *want))
 
 
+def served_vs_plain(sk, fp, opts, x0, warm):
+    """The tick kernel against its plain version on the served plan
+    ``fp`` (from options ``opts``) at the scaled state ``x0 [B, x]`` from
+    the served warm tuple ``warm``, with the serving iteration count, on
+    the lane-first plan made once as the serving path holds it, in
+    float64 and float32: ``(entry, kw, warm tensor, {dtype:
+    _stagewise_held's result})``.  The warm tensor is what the served
+    tick packs: the carried tuple, with a box-only problem's z reseeded
+    at the new state's clipped unconstrained optimum."""
+    import dataclasses
+
+    import torch
+    from copra_tpu_torch.qp.riccati import _initial_state
+
+    sqp = dataclasses.replace(fp.sqp, x0=x0)
+    warm_t = sk._pack_warm(fp, *_initial_state(
+        sqp, opts, warm, fp.rows, lambda: sk.lqr_solve_fixed(
+            fp.gains_raw, sqp.A, sqp.B, sqp.d, sqp.qx, sqp.ru, sqp.x0)))
+    entry = (sk.fused_stagewise_tick if fp.mode == "resident"
+             else sk.fused_stagewise_tick_streamed)
+    kw = dict(n_iter=opts.max_iter, N=sqp.horizon, x=sqp.xdim, u=sqp.udim,
+              r=sqp.nr_rows, sigma=opts.sigma, alpha=opts.alpha)
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        args = (fp.plan.to(dt), x0.mT.contiguous().to(dt), warm_t.to(dt))
+        out[dt] = _stagewise_held(sk, args, kw, entry, served=True)
+    return entry, kw, warm_t, out
+
+
 def stagewise_vs_plain(sk, cfg):
     """The tick kernel against its plain version on the served plan of
     ``cfg``, from the warm tuple a cold serving tick delivers, with the
@@ -881,21 +944,13 @@ def stagewise_vs_plain(sk, cfg):
 
     tick, opts = cfg["tick"], cfg["opts"]
     fp = tick._plans[tick._plan_key(opts)]
-    sqp = fp.sqp
-    N, x, u, r = sqp.horizon, sqp.xdim, sqp.udim, sqp.nr_rows
+    N = fp.sqp.horizon
     x0 = cfg["x0_seq"][1]
     if cfg["scale"] is not None:
         x0 = x0 / cfg["scale"][0]
     _, _, _, warm = tick(cfg["x0_seq"][0])
-    warm_t = sk._pack_warm(fp, *warm)
-    entry = (sk.fused_stagewise_tick if fp.mode == "resident"
-             else sk.fused_stagewise_tick_streamed)
-    kw = dict(n_iter=opts.max_iter, N=N, x=x, u=u, r=r,
-              sigma=opts.sigma, alpha=opts.alpha)
-    out = {}
-    for dt in (torch.float64, torch.float32):
-        args = (fp.plan.to(dt), x0.mT.contiguous().to(dt), warm_t.to(dt))
-        out[dt] = _stagewise_held(sk, args, kw, entry, served=True)
+    entry, kw, warm_t, out = served_vs_plain(sk, fp, opts, x0, warm)
+    x, u, r = kw["x"], kw["u"], kw["r"]
     (err32, ms), scale32, plain_ms, nbytes = out[torch.float32]
     plan32 = fp.plan.to(torch.float32)
     repack_ms = _cuda_ms(lambda: sk.lane_first_plan(plan32), 5)
@@ -2500,54 +2555,90 @@ def _no_sync(what: str, fn):
     return out
 
 
-def _profile(fn):
-    """Device time by kernel of one ``fn()`` (``torch.profiler``): rows
-    ``(ms, count, name)``, longest first; empty when the profiler saw no
-    device time."""
+# where the profiles' Chrome traces go (inside the checkout, git-ignored)
+TRACE_DIR = os.path.join("smoke_out", "traces")
+
+
+def _profile(fn, label: str):
+    """One ``fn()`` under ``torch.profiler`` (host and device), inside a
+    ``profiling.trace_span(label)``; its Chrome trace is exported (and
+    kept) under ``TRACE_DIR`` and read by ``profiling.trace_device_time``:
+    the interval union per stream.  Returns ``(busy ms or None, [(kernel,
+    ms), ...] longest first, the trace's event names, the sum of the
+    device events' durations in ms)``; busy is None when the trace has no
+    device track."""
     import torch
+    from copra_tpu_torch.profiling import (DEVICE_CATEGORIES,
+                                           trace_device_time, trace_span)
     from torch.profiler import ProfilerActivity, profile
 
+    out = os.path.join(TRACE_DIR, "".join(c if c.isalnum() else "_"
+                                          for c in label))
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0:
-            rows.append((t / 1e3, e.count, e.key))
-    return sorted(rows, reverse=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with trace_span(label):
+            fn()
+            torch.cuda.synchronize()
+    path = os.path.join(out, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = {e.get("name") for e in events}
+    summed = sum(float(e.get("dur", 0.0)) for e in events
+                 if e.get("ph") == "X"
+                 and e.get("cat") in DEVICE_CATEGORIES) * 1e-3
+    got = trace_device_time(out, top_k=1 << 20)
+    if got is None:
+        return None, [], names, summed
+    busy, top = got
+    return busy * 1e3, [(k, v * 1e3) for k, v in top], names, summed
 
 
-def _report_profile(label: str, rows, span_ms: float, own=None,
-                    top: int = 6) -> None:
-    """The profile ``rows`` of one call beside ``span_ms``, that call's
-    CUDA-event span: the kernels' busy time and the device's idle share.
-    ``own = (name fragment, ms)`` is what the kernels so named take in one
-    call by their own CUDA-event timing; where the profiler's records of
-    them differ from it by more than 15%, the profile is not trusted and
-    the idle share is not measured.  Busy time above the span by more than
-    3% is a miscount and fails."""
-    if not rows:
+def _report_profile(label: str, prof, span_ms: float, own=None,
+                    kernels=(), top: int = 6) -> None:
+    """The profile ``prof`` (:func:`_profile`) of one call beside
+    ``span_ms``, that call's CUDA-event span: the kernels' busy time (the
+    interval union per stream) and the device's idle share, beside what a
+    sum of durations gives.  Busy time above the span by more than 3% is a
+    miscount and fails.  ``own = (name fragment, ms)`` is what the kernels
+    so named take in one call by their own CUDA-event timing; where the
+    profiler's records of them differ from it by more than 15%, the
+    profile is not trusted and the idle share is not measured.  Each
+    symbol of ``kernels`` must name one of the top 8 ops, and the span
+    ``label`` must be in the trace (a device track is then required)."""
+    busy, ops, names, summed = prof
+    if busy is None:
+        if kernels:
+            fail(f"profile {label}: no device track in the trace")
         print(f"profile {label}: the profiler saw no device time; idle "
               f"share not measured")
         return
-    busy = sum(r[0] for r in rows)
-    tops = "; ".join(f"{k[:60]} {ms:.4f} ms x{n}" for ms, n, k in rows[:top])
-    head = f"profile {label}: kernels busy {busy:.4f} ms of a " \
-        f"{span_ms:.4f} ms span"
+    tops = "; ".join(f"{k[:60]} {ms:.4f} ms" for k, ms in ops[:top])
+    ranks = {sym: next((i for i, (k, _) in enumerate(ops[:8]) if sym in k),
+                       None) for sym in kernels}
+    head = f"profile {label}: kernels busy {busy:.4f} ms (interval " \
+        f"union per stream; durations summed {summed:.4f} ms, idle share " \
+        f"{1.0 - summed / span_ms:.4f} by that sum) of a {span_ms:.4f} ms " \
+        f"span; span in the trace {label in names}"
+    if kernels:
+        head += f"; kernel ranks among the top 8 {ranks}"
+    if busy > 1.03 * span_ms:
+        fail(f"profile {label}: kernels busy {busy:.4f} ms exceed 1.03 x "
+             f"the {span_ms:.4f} ms span")
+    if kernels and (label not in names or None in ranks.values()):
+        fail(f"profile {label}: the span or a kernel is missing from the "
+             f"trace ({ranks})")
     if own is not None:
-        seen = sum(ms for ms, _, k in rows if own[0] in k)
+        seen = sum(ms for k, ms in ops if own[0] in k)
         if abs(seen - own[1]) > 0.15 * own[1]:
             print(f"{head}; idle share not measured (the profiler saw "
                   f"{seen:.4f} ms of {own[0]}, its own timing gives "
                   f"{own[1]:.4f} ms); top: {tops}")
             return
-    if busy > 1.03 * span_ms:
-        fail(f"profile {label}: kernels busy {busy:.4f} ms exceed the "
-             f"{span_ms:.4f} ms span")
-    print(f"{head} (idle share {1.0 - busy / span_ms:.3f}); top: {tops}")
+    print(f"{head} (idle share {1.0 - busy / span_ms:.4f}); top: {tops}")
 
 
 def _chain_launches(chains) -> str:
@@ -2591,9 +2682,10 @@ def chained_plan_phase(tt, ak, plan, opts, step, x0_dev, reset_counts,
     host_ms, dev_ms, issue_ms = (v / TICKS for v in (host_ms, dev_ms,
                                                     issue_ms))
     _no_sync("a make_plan_multistep replay", lambda: many(seq, warm))
-    _report_profile(f"config 4 chained, one replay of {TICKS} ticks",
-                    _profile(lambda: many(seq, warm)), dev_ms * TICKS,
-                    own=("box_", k1_ms * TICKS))
+    label = f"config 4 chained, one replay of {TICKS} ticks"
+    _report_profile(label, _profile(lambda: many(seq, warm), label),
+                    dev_ms * TICKS, own=("box_", k1_ms * TICKS),
+                    kernels=("box_register_kernel", "box_qx_kernel"))
     launches = ak.fused_admm_box_lanes.launches
     if launches == 0:
         fail("the chained main path never launched fused_admm_box_lanes")
@@ -2744,11 +2836,13 @@ def chained_stagewise_phase(tt, sk, cfg, reset_counts, kernel_ms):
     opts = cfg["opts"]
     own = kernel_ms * (T + fired * opts.topup_iters / opts.max_iter)
     many.replan(cfg["fleet"])
-    _report_profile(f"{cfg['name']} chained, one replay of {T} ticks",
-                    _profile(lambda: many(None, T, warm=warm, x0_seq=seq)),
-                    dev_ms * T, own=("stagewise_tick_kernel", own))
-    _report_profile(f"{cfg['name']} status pass, eager", _profile(status),
-                    status_ms)
+    label = f"{cfg['name']} chained, one replay of {T} ticks"
+    _report_profile(label, _profile(
+        lambda: many(None, T, warm=warm, x0_seq=seq), label), dev_ms * T,
+        own=("stagewise_tick_kernel", own),
+        kernels=("stagewise_tick_kernel",))
+    label = f"{cfg['name']} status pass, eager"
+    _report_profile(label, _profile(status, label), status_ms)
     print(f"main path chained {cfg['name']} ({T} ticks a CUDA graph, "
           f"x0_seq): {host_ms:.4f} host ms/tick, {dev_ms:.4f} device "
           f"ms/tick (CUDA events), {issue_ms:.4f} host ms/tick to issue; "
@@ -3300,6 +3394,438 @@ def solve_phase(tt, sk, dev, reset_counts):
     return k4
 
 
+# ---------------------------------------------------------------------------
+# The closed loop, checkpoints, traces and the examples (phases 27-30).
+# ---------------------------------------------------------------------------
+
+# the closed loop at config 4's width: ticks of the rebuild route, ticks of
+# the plan route on lane 0 (the reference's test: 20 ticks, max_iter 1500,
+# states within 2e-4 and controls within 2e-3 of the rebuild route,
+# tests/test_receding.py:96-104), and the tick a checkpoint is taken at
+LOOP_TICKS, PLAN_LOOP_TICKS, PLAN_MAX_ITER, RESUME_AT = 5, 20, 1500, 2
+PLAN_STATE_TOL, PLAN_CONTROL_TOL = 2e-4, 2e-3
+PLANT_TOL = 1e-12
+# the fleet example's converged lane-ticks (its reference run on the CPU:
+# 0.8873)
+FLEET_CONVERGED = 0.85
+
+
+def loop_terms(tt, f):
+    """Config 4's costs and control bound (``build_serving``'s), each
+    array made by ``f``."""
+    costs = (tt.TargetCost.create(f(np.eye(2)), f([0.0, -1.0]),
+                                  weights=f([10.0, 1e4])),
+             tt.ControlCost.create(f([[1.0]]), f([2.0]), weights=f([1e-4])))
+    return costs, (tt.ControlBoundConstraint.create(f([-BOUND]),
+                                                    f([BOUND])),)
+
+
+def closed_loop_phase(tt, dev):
+    """Phase 27: config 4's fleet (``build_fleet``'s arrays in float64:
+    4096 LTV lanes, N = 100, +-60 bound) through ``receding.closed_loop``'s
+    rebuild route for LOOP_TICKS ticks with default options, lanes as one
+    batch and each lane's plant its own stage 0: the controls of lanes 0,
+    1, 17 and 4095 at every tick, and their whole plans, against the
+    native oracle on that lane's QP at the realized state (<= 1e-5), the
+    plant identity, host ms a tick; then lane 0 through ``use_plan=True``
+    for PLAN_LOOP_TICKS ticks against the rebuild route on the same lane.
+    Returns what phases 28 and 29 reuse."""
+    import torch
+    from copra_tpu_torch.receding import closed_loop
+
+    t_phase = time.perf_counter()
+    arrays = [np.asarray(a, np.float64) for a in build_fleet(BATCH,
+                                                             HORIZON)[0]]
+    f64 = lambda a: torch.tensor(np.asarray(a, np.float64), device=dev)
+    system = tt.LTVSystem(*(f64(a) for a in arrays))
+    costs, cons = loop_terms(tt, f64)
+    opts = tt.SolverOptions()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = closed_loop(system, costs, cons, LOOP_TICKS, opts)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / LOOP_TICKS
+    X, U = res.states, res.controls
+    if tuple(X.shape) != (BATCH, LOOP_TICKS + 1, 2) \
+            or tuple(U.shape) != (BATCH, LOOP_TICKS, 1) \
+            or tuple(res.solutions.status.shape) != (BATCH, LOOP_TICKS) \
+            or not bool(torch.isfinite(X).all() & torch.isfinite(U).all()):
+        fail(f"closed loop: states {tuple(X.shape)}, controls "
+             f"{tuple(U.shape)}")
+    # the plant identity: each lane stepped with its own stage 0
+    A0, B0, d0 = system.A[:, 0], system.B[:, 0], system.d[:, 0]
+    plant = max(float((X[:, t + 1] - torch.einsum("bij,bj->bi", A0, X[:, t])
+                       - torch.einsum("bij,bj->bi", B0, U[:, t])
+                       - d0).abs().max()) for t in range(LOOP_TICKS))
+    cpu_terms = loop_terms(tt, lambda a: torch.tensor(np.asarray(
+        a, np.float64)))
+    err = plan_err = 0.0
+    Xh, Uh, plans = X.cpu(), U.cpu(), res.solutions.x.cpu()
+    lanes = (0, 1, 17, BATCH - 1)
+    for lane in lanes:
+        preview = tt.condense(tt.LTVSystem(*(torch.tensor(a[lane])
+                                             for a in arrays)))
+        for t in range(LOOP_TICKS):
+            qp = tt.build_qp(preview, Xh[lane, t], *cpu_terms)
+            exact = tt.solve_qp_native(qp).x
+            err = max(err, float((Uh[lane, t] - exact[:1]).abs().max()))
+            plan_err = max(plan_err, float((plans[lane, t] - exact).abs()
+                                           .max()))
+    share = float((res.solutions.status == 0).double().mean())
+    iters = res.solutions.iterations.double().mean(0).tolist()
+    # lane 0 on the plan route against the rebuild route
+    lane0 = tt.LTVSystem(*(f64(a[0]) for a in arrays))
+    popts = tt.SolverOptions(max_iter=PLAN_MAX_ITER)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    planned = closed_loop(lane0, costs, cons, PLAN_LOOP_TICKS, popts,
+                          use_plan=True)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3 / PLAN_LOOP_TICKS
+    t0 = time.perf_counter()
+    rebuilt = closed_loop(lane0, costs, cons, PLAN_LOOP_TICKS, popts)
+    torch.cuda.synchronize()
+    lane_ms = (time.perf_counter() - t0) * 1e3 / PLAN_LOOP_TICKS
+    ds = float((planned.states - rebuilt.states).abs().max())
+    du = float((planned.controls - rebuilt.controls).abs().max())
+    print(f"closed loop (config 4's fleet, B = {BATCH}, N = {HORIZON}, "
+          f"float64, {LOOP_TICKS} ticks of the rebuild route, default "
+          f"options): {loop_ms:.1f} host ms/tick (condensing once "
+          f"included), mean iterations a tick {[round(i, 1) for i in iters]}"
+          f", converged share {share:.6f}, max_err_vs_exact {err:.3e} "
+          f"(applied control) and {plan_err:.3e} (the whole plan) on lanes "
+          f"{list(lanes)} at every tick, plant identity "
+          f"{plant:.3e}; lane 0, {PLAN_LOOP_TICKS} ticks at max_iter "
+          f"{PLAN_MAX_ITER}: plan route {plan_ms:.2f} host ms/tick, rebuild "
+          f"route {lane_ms:.2f}, states within {ds:.3e} (tol "
+          f"{PLAN_STATE_TOL}), controls within {du:.3e} (tol "
+          f"{PLAN_CONTROL_TOL}); phase 27 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not max(err, plan_err) <= ORACLE_TOL:
+        fail(f"closed loop: max_err_vs_exact {err:.3e} / {plan_err:.3e} "
+             f"> {ORACLE_TOL}")
+    if not plant <= PLANT_TOL:
+        fail(f"closed loop: the plant identity is off by {plant:.3e}")
+    if not (ds <= PLAN_STATE_TOL and du <= PLAN_CONTROL_TOL):
+        fail(f"closed loop: the plan route is {ds:.3e} / {du:.3e} from "
+             f"the rebuild route")
+    return dict(system=system, costs=costs, cons=cons, opts=opts, res=res,
+                loop_ms=loop_ms)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _store(label: str, state, out: str, meta: dict):
+    """``state`` saved as npz and through DCP under ``out``, both loaded
+    back onto the card: ``(npz state, DCP state, metadata, line)``."""
+    import torch
+    from copra_tpu_torch._graph import tree_map
+    from copra_tpu_torch.checkpoint import (load_pytree, load_pytree_dcp,
+                                            save_pytree, save_pytree_dcp)
+
+    npz, dcp = os.path.join(out, f"{label}.npz"), os.path.join(out, label)
+    like = tree_map(torch.zeros_like, state)
+    ms = []
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    clock(lambda: save_pytree(npz, state, meta))
+    clock(lambda: save_pytree_dcp(dcp, state))
+    from_npz, saved_meta = clock(lambda: load_pytree(npz, like))
+    from_dcp = clock(lambda: load_pytree_dcp(dcp, like))
+    line = (f"npz {os.path.getsize(npz)} bytes, save {ms[0]:.1f} ms, load "
+            f"{ms[2]:.1f} ms; DCP {_dir_bytes(dcp)} bytes, save "
+            f"{ms[1]:.1f} ms, load {ms[3]:.1f} ms")
+    return from_npz, from_dcp, saved_meta, line
+
+
+def _same(a, b) -> bool:
+    """Two trees of tensors, leaf for leaf: device, dtype and bits."""
+    import torch
+    from copra_tpu_torch.checkpoint import _flatten
+
+    la, lb = _flatten(a)[0], _flatten(b)[0]
+    return len(la) == len(lb) and all(
+        x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def checkpoint_phase(tt, sk, loop, cfg5, reset_counts):
+    """Phase 28: resume from a checkpoint.  Config 4's fleet: phase 27's
+    loop again through ``make_receding_step`` (its controls equal phase
+    27's bit for bit), the warm state at tick RESUME_AT saved as npz
+    (``save_warm_start``) and through ``save_pytree_dcp``, both loaded
+    onto the card and LOOP_TICKS - RESUME_AT ticks resumed from each: the
+    resumed U equals the unbroken run's bit for bit.  The same for config
+    5's stagewise warm tuple from ``make_stagewise_step`` (K4).  Returns
+    K4's launches."""
+    import torch
+    from copra_tpu_torch.receding import (_first_step_plant, cold_start,
+                                          make_receding_step)
+
+    t_phase = time.perf_counter()
+    out = os.path.join("smoke_out", "checkpoints")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    system, costs, cons = loop["system"], loop["costs"], loop["cons"]
+    step, preview = make_receding_step(system, costs, cons, loop["opts"])
+    plant = _first_step_plant(system)
+    qp0 = tt.build_qp(preview, system.x0, costs, cons)
+    warm = cold_start(preview, qp0.nr_eq, qp0.nr_ineq, qp0.Q.dtype)
+    x, Us, tick_ms = system.x0, [], []
+    for t in range(LOOP_TICKS):
+        if t == RESUME_AT:
+            at = (x, warm)
+        t0 = time.perf_counter()
+        u0, U, _, warm = step(x, warm)
+        x = plant(x, u0)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        Us.append(U)
+    t0 = time.perf_counter()
+    tt.build_qp(preview, x, costs, cons)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    same_loop = torch.equal(torch.stack([U[:, :1] for U in Us], 1),
+                            loop["res"].controls)
+    from_npz, from_dcp, meta, line4 = _store("config4_warm", at[1], out,
+                                            {"tick": RESUME_AT})
+    resumed4 = []
+    for w in (from_npz, from_dcp):
+        x, ok = at[0], _same(w, at[1])
+        for t in range(RESUME_AT, LOOP_TICKS):
+            u0, U, _, w = step(x, w)
+            x = plant(x, u0)
+            ok = ok and torch.equal(U, Us[t])
+        resumed4.append(ok)
+    # config 5's stagewise warm tuple (K4)
+    tick, seq = cfg5["tick"], cfg5["x0_seq"]
+    entry = _entry(sk, cfg5["fleet"])
+    reset_counts()
+    w, U5 = None, []
+    for t in range(LOOP_TICKS):
+        if t == RESUME_AT:
+            at5 = w
+        _, U, _, w = tick(seq[t], w)
+        U5.append(U)
+    s_npz, s_dcp, _, line5 = _store("config5_warm", at5, out,
+                                    {"tick": RESUME_AT})
+    resumed5 = []
+    for w in (s_npz, s_dcp):
+        ok = _same(w, at5)
+        for t in range(RESUME_AT, LOOP_TICKS):
+            _, U, _, w = tick(seq[t], w)
+            ok = ok and torch.equal(U, U5[t])
+        resumed5.append(ok)
+    torch.cuda.synchronize()
+    n = entry.launches
+    shutil.rmtree(out)
+    print(f"checkpoints: config 4's fleet (WarmStart x {tuple(at[1].x.shape)}"
+          f", y, z {tuple(at[1].y.shape)}, float64) saved at tick "
+          f"{RESUME_AT}: {line4}; the receding step's loop equals phase "
+          f"27's bit for bit: {same_loop} (host ms a tick "
+          f"{[round(m, 1) for m in tick_ms]}, of which build_qp "
+          f"{build_ms:.1f}); {LOOP_TICKS - RESUME_AT} ticks "
+          f"resumed bit for bit from npz / DCP: {resumed4}; config 5's "
+          f"stagewise warm tuple ({len(at5)} tensors, "
+          f"{sum(t.numel() for t in at5)} float32 values): {line5}; "
+          f"resumed bit for bit from npz / DCP: {resumed5}; {n} "
+          f"{entry.__name__} launches; phase 28 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not (same_loop and all(resumed4) and all(resumed5)
+            and meta == {"tick": RESUME_AT}):
+        fail("checkpoints: a resumed tick differs from the unbroken run")
+    if n == 0:
+        fail(f"checkpoints: config 5's ticks never launched "
+             f"{entry.__name__}")
+    return {entry.__name__: n}
+
+
+def metrics_phase(loop):
+    """Phase 29: ``solve_metrics`` of phase 27's last tick against a numpy
+    recomputation (phases 20 and 21 gate ``trace_span`` and
+    ``trace_device_time`` on their traces)."""
+    import dataclasses
+
+    import torch
+    from copra_tpu_torch.profiling import solve_metrics
+
+    t_phase = time.perf_counter()
+    sols = loop["res"].solutions
+    last = type(sols)(**{f.name: getattr(sols, f.name)[:, -1]
+                         for f in dataclasses.fields(sols)})
+    elapsed = loop["loop_ms"] * 1e-3
+    got = solve_metrics(last, elapsed_s=elapsed)
+    st, rp, rd, it = (getattr(last, f).cpu().numpy() for f in (
+        "status", "primal_residual", "dual_residual", "iterations"))
+    want = {"batch": int(st.size), "converged": int((st == 0).sum()),
+            "convergence_rate": float((st == 0).mean()),
+            "max_primal_residual": float(rp.max()),
+            "max_dual_residual": float(rd.max()),
+            "mean_iterations": float(it.mean()),
+            "max_iterations": int(it.max()), "seconds": elapsed,
+            "solves_per_s": st.size / elapsed}
+    torch.cuda.synchronize()
+    print(f"solve_metrics of phase 27's last tick: {got}; equal to the "
+          f"numpy recomputation: {got == want}; phase 29 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if got != want:
+        fail(f"solve_metrics {got} differs from {want}")
+
+
+def served_tick_vs_plain(sk, name, facade, x0, warm):
+    """One served tick of an example, its plan and inputs as the example
+    left them (``facade``: the ``StagewiseTick`` or ``StagewiseMultistep``
+    it served with; ``x0``, ``warm``: the next tick's state in physical
+    units and warm tuple): the tick kernel against its plain version at
+    phases 5-7's tolerances.  Returns the line."""
+    import torch
+
+    if hasattr(facade, "_plans"):
+        opts = facade._options
+        fp = facade._plans[facade._plan_key(opts)]
+    else:
+        opts, fp = facade._options, facade._data[3]
+    if facade._scale is not None:
+        x0 = x0 / facade._scale[0]
+    entry, kw, _, out = served_vs_plain(sk, fp, opts, x0, warm)
+    (e32, ms), scale32, plain_ms, _ = out[torch.float32]
+    e64 = out[torch.float64][0][0]
+    line = (f"{name}'s served tick through {entry.__name__} (B = "
+            f"{x0.shape[0]}, N = {kw['N']}, x = {kw['x']}, u = {kw['u']}, "
+            f"r = {kw['r']}, {kw['n_iter']} iterations): float64 "
+            f"max_abs_err {e64:.3e} (tol {F64_TOL}), float32 {e32:.3e} (tol "
+            f"{F32_RTOL * scale32:.3e}) against its plain version, "
+            f"{ms:.4f} ms against {plain_ms:.4f} ms")
+    if not (e64 <= F64_TOL and e32 <= F32_RTOL * scale32):
+        fail(f"example {name}: {line}")
+    return line
+
+
+def examples_phase(tt, sk, reset_counts):
+    """Phase 30: each port example at its default size on the card, with
+    its own checks as gates: ``torch_getting_started.main()`` (N = 300,
+    float64; v <= 0 and force <= 200 N), ``torch_bipedal_walking``'s
+    ``solve_preview()`` (N = 300, float64; the ZMP inside the polygon to
+    1e-6) and ``serve_fleet()`` (4 robots; every lane of the last tick
+    converged), ``torch_quadruped_srb.serve()`` (4 robots, N = 40; every
+    lane converged, the friction cones and the height corridor) and
+    ``torch_fleet_serving.main()`` (converged share >= FLEET_CONVERGED);
+    the servers' ticks as each example records them.  K4 must launch in
+    the bipedal and fleet examples, K5 in the quadruped's.  Then, counted
+    apart, the tick kernel against its plain version on one served tick
+    of the quadruped server (K5) and of the fleet-serving chain (K4), the
+    shapes no other phase holds (the bipedal fleet's is config 5's).
+    Returns the launches by entry point."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples"))
+    import torch_bipedal_walking as bipedal
+    import torch_fleet_serving as fleet
+    import torch_getting_started as getting_started
+    import torch_quadruped_srb as quadruped
+
+    t_phase = time.perf_counter()
+    k4, k5 = sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed
+    launches = {k4.__name__: 0, k5.__name__: 0}
+    lines = []
+
+    def run(name, fn, need):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for w in (k4, k5):
+            launches[w.__name__] += w.launches
+        if need is not None and need.launches == 0:
+            fail(f"example {name}: no {need.__name__} launch")
+        counts = f"{k4.launches} K4, {k5.launches} K5 launches"
+        return got, secs, counts
+
+    (X, U, ctl), secs, counts = run("getting_started",
+                                    getting_started.main, None)
+    vmax, fmax = float(X[1::2].max()), float(U.max())
+    lines.append(f"getting_started (LMPC, N = 300, f64): solve "
+                 f"{ctl.solve_time() * 1e3:.1f} ms, {secs:.2f} s in all, "
+                 f"max v {vmax:+.2e}, max force {fmax:.2f} N")
+    if not (vmax <= 1e-6 and fmax <= 200.0 + 1e-6):
+        fail(f"example getting_started: v {vmax:.3e}, force {fmax:.3f}")
+
+    (X, U, zmp, (ref, lo, hi), sol), secs, counts = run(
+        "bipedal solve_preview", bipedal.solve_preview, k4)
+    inside = bool((zmp <= hi + 1e-6).all() and (zmp >= lo - 1e-6).all())
+    lines.append(f"bipedal solve_preview (N = 300, f64, 2 lanes): "
+                 f"{secs:.2f} s, statuses {sol.status.tolist()}, iterations "
+                 f"{sol.iterations.tolist()}, ZMP in the polygon {inside}, "
+                 f"{counts}")
+    if not inside:
+        fail("example bipedal: the ZMP leaves the support polygon")
+
+    biped = {}
+    (X, U, info), secs, counts = run(
+        "bipedal serve_fleet", lambda: bipedal.serve_fleet(record=biped), k4)
+    ticks = [t * 1e3 for t in biped["tick_s"]]
+    conv = bool((info.status == 0).all())
+    lines.append(f"bipedal serve_fleet (4 robots = 8 lanes, N = 300, f32): "
+                 f"{secs:.2f} s with the server's set-up, cold tick "
+                 f"{ticks[0]:.2f} ms, warm ticks "
+                 f"{[round(t, 2) for t in ticks[1:]]} ms, all lanes "
+                 f"converged {conv}, {counts}")
+    if not conv:
+        fail("example bipedal serve_fleet: a lane did not converge")
+
+    quad = {}
+    (X, U, info, wi), secs, counts = run(
+        "quadruped serve",
+        lambda: quadruped.serve(verbose=False, record=quad), k5)
+    ticks = [t * 1e3 for t in quad["tick_s"]]
+    f = U[:, 0].double().cpu().numpy().reshape(-1, 4, 3)
+    h = X[:, :, 5].double().cpu().numpy()
+    physical = bool((f[..., 2] >= -1e-4).all()
+                    and (np.abs(f[..., :2]) <= 0.6 * f[..., 2:] + 1e-3).all()
+                    and (h >= 0.2 - 1e-5).all() and (h <= 0.4 + 1e-5).all())
+    conv = bool((info.status == 0).all())
+    lines.append(f"quadruped serve (4 robots, N = 40, f32, measured warm "
+                 f"iterations {wi}): {secs:.2f} s with the server's set-up, "
+                 f"cold tick {ticks[0]:.2f} ms, warm ticks "
+                 f"{[round(t, 2) for t in ticks[1:]]} ms, all lanes "
+                 f"converged {conv}, cones and corridor held {physical}, "
+                 f"{counts}")
+    if not (conv and physical):
+        fail(f"example quadruped: converged {conv}, physical {physical}")
+
+    served = {}
+    (statuses, states, share), secs, counts = run(
+        "fleet_serving", lambda: fleet.main(record=served), k4)
+    chains = [t * 1e3 for t in served["chain_s"]]
+    lines.append(f"fleet_serving (16 robots, N = 12, f32, 2 chains of 50 "
+                 f"ticks): {secs:.2f} s with rho's probes, first chain "
+                 f"(capture) {chains[0]:.1f} ms, second {chains[1] / 50:.4f} "
+                 f"host ms/tick, converged share {share:.4f} (gate "
+                 f"{FLEET_CONVERGED}), {counts}")
+    if not share >= FLEET_CONVERGED:
+        fail(f"example fleet_serving: converged share {share:.4f}")
+    # not counted: the served ticks' kernels against their plain versions
+    for name, rec in (("quadruped", quad), ("fleet_serving", served)):
+        lines.append(served_tick_vs_plain(sk, name, rec["tick"], rec["x0"],
+                                          rec["warm"]))
+    print("examples on the card: " + "; ".join(lines) + f"; phase 30 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3465,9 +3991,10 @@ def main() -> int:
     k1["launches"] += wide_launches
 
     # phase 20: config 4 chained, TICKS ticks a CUDA graph
-    k1["launches"] += chained_plan_phase(
+    n = chained_plan_phase(
         tt, ak, plan, opts, step, x0_dev, reset_counts,
         modes["x0_zero"][2] * ROUNDS + modes["qx"][2])
+    k1["launches"] += n
     # phase 21: configs 6 and 5 chained, in x0_seq and plant modes
     for cfg in configs:
         fp = cfg["tick"]._plans[cfg["tick"]._plan_key(cfg["opts"])]
@@ -3487,6 +4014,14 @@ def main() -> int:
         kernels[entry]["launches"] += n
     kernels["fused_stagewise_tick"]["launches"] += solve_phase(
         tt, sk, dev, reset_counts)
+    # phases 27-30: the closed loop, checkpoints, traces and the examples
+    loop = closed_loop_phase(tt, dev)
+    for entry, n in checkpoint_phase(tt, sk, loop, configs[1],
+                                     reset_counts).items():
+        kernels[entry]["launches"] += n
+    metrics_phase(loop)
+    for entry, n in examples_phase(tt, sk, reset_counts).items():
+        kernels[entry]["launches"] += n
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_wide)
     order = ("fused_admm_box_lanes", "fused_admm_box",

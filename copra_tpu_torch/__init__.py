@@ -11,8 +11,11 @@ plans, the box-only and general-row steps) and its multistep chain
 serving tick, multistep chain (``make_stagewise_multistep``), measured
 serving policies (``auto_rho_stagewise``, ``auto_iters_stagewise``), f64
 polish and no-knobs server (``make_stagewise_server``), the no-knobs
-one-shot ``solve``, and the log-depth forms (``lqr_solve_assoc``,
-``condense_lti_assoc``, ``condense_ltv_assoc``).  On a CUDA device the multistep chains run as
+one-shot ``solve``, the log-depth forms (``lqr_solve_assoc``,
+``condense_lti_assoc``, ``condense_ltv_assoc``), and the modules a
+controller is wrapped in: :mod:`.receding` (the closed loop),
+:mod:`.checkpoint` (save and resume) and :mod:`.profiling` (spans, timing,
+metrics and device time from a trace).  On a CUDA device the multistep chains run as
 CUDA graphs, their ticks free of host syncs.  The fixed-count ADMM
 iterations and the batched Cholesky run in hand-written CUDA kernels
 (``csrc/admm_box.cu``, ``csrc/admm_box_shared.cu``,

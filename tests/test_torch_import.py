@@ -20,6 +20,7 @@ import copra_tpu_torch.parallel.batch, copra_tpu_torch.ops.stagewise_kernel
 import copra_tpu_torch.qp.riccati, copra_tpu_torch._scan
 import copra_tpu_torch._graph, copra_tpu_torch.ops.counts
 import copra_tpu_torch.solve, copra_tpu_torch.ops.polish
+import copra_tpu_torch.receding, copra_tpu_torch.checkpoint
 copra_tpu_torch.make_plan_multistep, copra_tpu_torch.make_stagewise_multistep
 copra_tpu_torch.solve, copra_tpu_torch.make_stagewise_server
 copra_tpu_torch.LMPC, copra_tpu_torch.solve_qp_batched
@@ -31,11 +32,37 @@ sys.exit(1 if bad else 0)
 """
 
 
-def test_import_loads_no_jax_and_no_reference():
+_EXAMPLES = """
+import sys
+sys.path.insert(0, 'examples')
+import torch_getting_started, torch_bipedal_walking
+import torch_quadruped_srb, torch_fleet_serving
+from copra_tpu_torch.profiling import trace_span, trace_device_time
+from copra_tpu_torch.checkpoint import save_pytree_dcp
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'copra_tpu'))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def _run_fresh(code: str):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
-    proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
+
+
+def test_import_loads_no_jax_and_no_reference():
+    proc = _run_fresh(_CHECK)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_examples_load_no_jax_and_no_reference():
+    """The example scripts of the port (``examples/torch_*.py``) and the
+    closed-loop, checkpoint and profiling modules they reach import
+    neither JAX nor ``copra_tpu``."""
+    proc = _run_fresh(_EXAMPLES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
