@@ -227,7 +227,24 @@ Phases, one line or more each:
     them); the tick kernel against its plain version on one served tick's
     plan and inputs of the fleet-serving chain (K4, x = 2, u = 1, N = 12,
     16 lanes) and of the quadruped server (K5, 16 friction rows and the
-    state corridor), at phases 5-7's tolerances.
+    state corridor), at phases 5-7's tolerances;
+31. the parallel layer (``copra_tpu_torch.parallel``) on
+    ``torch.distributed`` with NCCL in a world of one process (one card
+    cannot host two NCCL ranks; the tests hold the collectives between
+    processes with gloo on the CPU): ``examples/torch_batched_serving.py``
+    at its defaults (1024 lanes, N = 50, 60 iterations), its cold sharded
+    step equal bit for bit to the unsharded fixed-count solve and its
+    all-reduced totals; ``sharded_solve_mpc`` on the SmallSystem's 16-lane
+    fleet (f64, default options) against the golden control (2e-4) and the
+    native oracle (control 2e-4, trajectory 1e-4); the model-parallel
+    solve in f64 against ``solve_qp`` at the same lockstep options on the
+    golden QP and on config 4's lane at N = 300 with trajectory and control
+    bounds (1e-8 relative; ms an iteration and the all-reduces a solve),
+    and DP x TP over 64 such lanes; the horizon-sharded LQ solves at phase
+    22's config-5 width (512 lanes, N = 300, no cross term) against
+    ``lqr_solve`` and ``lqr_solve_assoc`` (1e-9 relative); a ``Shard(0)``
+    DTensor warm start through DCP, one step resumed bit for bit.  Times
+    are CUDA events; each line carries the card's name and power limit.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  A chain's
@@ -2876,7 +2893,8 @@ def assoc_phase(tt, dev, plan_arrays, cfg5):
     lanes, N = 300, x = 3, u = 1, with the rows' cross term), the
     parallel dual residual on config 5's served data and at the fused
     envelope's widest state (128 lanes, N = 300, x = 64, u = r = 32,
-    with its work memory); each timed beside its serial form."""
+    with its work memory); each timed beside its serial form.  Returns the
+    config-5 LQ problem without the cross term (phase 31 takes it)."""
     import dataclasses
 
     import torch
@@ -2964,6 +2982,7 @@ def assoc_phase(tt, dev, plan_arrays, cfg5):
     print("log-depth forms: " + "; ".join(lines))
     if not worst <= 1e-9:
         fail(f"a log-depth form differs from its serial form by {worst:.3e}")
+    return lq
 
 
 # ---------------------------------------------------------------------------
@@ -3826,6 +3845,257 @@ def examples_phase(tt, sk, reset_counts):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The parallel layer (phase 31) on torch.distributed, in a world of one
+# process: one card cannot host two NCCL ranks, so the collectives between
+# processes are held by the CPU tests (gloo, four processes) and the card
+# runs NCCL's path at world 1.
+# ---------------------------------------------------------------------------
+
+# the model-parallel solve at config 4's width (lockstep iterations; the
+# golden QP's 1500 are tests/test_model_parallel.py's), the DP x TP lanes
+MP_GOLDEN_ITERS, MP_WIDE_ITERS, DP_TP_LANES = 1500, 200, 64
+MP_TOL, LQ_TOL, GOLDEN_U_TOL, GOLDEN_X_TOL = 1e-8, 1e-9, 2e-4, 1e-4
+
+
+def _once_ms(fn):
+    """``fn()`` and its ms between CUDA events recorded around it."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    got = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return got, a.elapsed_time(b)
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def parallel_phase(tt, dev, card: str, lq):
+    """Phase 31: the parallel layer on the card, NCCL at world 1
+    (``distributed_init`` in this process, ``127.0.0.1`` on a free port):
+    (a) ``examples/torch_batched_serving.main()`` at its defaults, its
+    cold sharded step equal bit for bit to the unsharded fixed-count
+    ``solve_mpc_batch``, the warm step timed by CUDA events; (b)
+    ``sharded_solve_mpc`` on the SmallSystem's 16-lane fleet (f64, default
+    options), lane 0 against the golden control and every lane against the
+    native oracle; (c) ``solve_qp_model_parallel`` in f64 on the golden QP
+    and on config 4's N = 300 lane with trajectory and control bounds
+    against ``solve_qp`` at the same lockstep options, then
+    ``solve_qp_dp_tp`` on a (1, 1) mesh over 64 such lanes; (d)
+    ``lqr_solve_sharded`` and ``lqr_solve_sharded_batch`` at phase 22's
+    config-5 LQ width (no cross term) against ``lqr_solve`` and
+    ``lqr_solve_assoc``; (e) the cold step's warm start as ``Shard(0)``
+    DTensors through ``save_pytree_dcp`` and back, one step resumed bit
+    for bit.  Every line carries ``card``."""
+    import collections
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from copra_tpu_torch._graph import tree_map
+    from copra_tpu_torch.checkpoint import load_pytree_dcp, save_pytree_dcp
+    from copra_tpu_torch.parallel import (_collectives, batch_axes,
+                                          distributed_init, make_mesh,
+                                          shard_batch, sharded_solve_mpc,
+                                          solve_mpc_batch,
+                                          solve_qp_model_parallel)
+    from copra_tpu_torch.parallel.horizon import (lqr_solve_sharded,
+                                                  lqr_solve_sharded_batch)
+    from copra_tpu_torch.parallel.model import solve_qp_dp_tp
+    from copra_tpu_torch.qp import riccati as tr
+    from copra_tpu_torch.qp.admm import _BASE_NDIM
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "examples"))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import fixtures as fx
+    import torch_batched_serving as example
+
+    t_phase = time.perf_counter()
+    distributed_init(f"127.0.0.1:{example._free_port()}", 1, 0)
+    backend = dist.get_backend()
+    tag = f"({card})"
+    lines = [f"process group: {backend}, world {dist.get_world_size()}"]
+
+    # (a) the example at its defaults
+    rec = {}
+    got = example.main(record=rec)
+    fleet, costs, cons = example.build_fleet()
+    cold, stats = rec["cold"], rec["cold_stats"]
+    want = solve_mpc_batch(fleet, costs, cons,
+                           rec["options"].replace(early_exit=False))
+    same = all(torch.equal(a.to_local(), b) for a, b in (
+        (cold.control, want.control), (cold.solution.x, want.solution.x),
+        (cold.solution.y, want.solution.y),
+        (cold.solution.z, want.solution.z)))
+    n_solved = int((want.solution.status == 0).sum())
+    step, sharded = rec["step"], rec["fleet"]
+    warm = tt.WarmStart(x=cold.solution.x, y=cold.solution.y,
+                        z=cold.solution.z)
+    step_ms = _cuda_ms(lambda: step(sharded, warm), 5)
+    lines.append(
+        f"(a) torch_batched_serving (B = {got['batch']}, N = "
+        f"{got['horizon']}, 60 iterations): cold sharded step equal bit for "
+        f"bit to the unsharded solve (control, x, y, z): {same}; total "
+        f"{int(stats['total'])}, converged {int(stats['converged'])} of "
+        f"{n_solved} solved lanes; warm step {step_ms:.4f} ms by CUDA "
+        f"events, {got['batch'] / step_ms * 1e3:.0f} solves/s; the "
+        f"example's own host clock {got['warm_step_ms']:.4f} ms, "
+        f"converged {got['converged']}/{got['total']}, max primal "
+        f"residual {got['max_primal_residual']:.3e} {tag}")
+    if not (same and int(stats["total"]) == got["batch"]
+            and int(stats["converged"]) == n_solved):
+        fail(f"phase 31 (a): {lines[-1]}")
+
+    # (b) sharded_solve_mpc on the SmallSystem's 16-lane fleet
+    rng = np.random.default_rng(42)
+    x0s = np.repeat(fx.SMALL_X0[None], 16, axis=0)
+    x0s[1:] += rng.normal(scale=[0.02, 0.1], size=(15, 2))
+    x0s[:, 1] = np.minimum(x0s[:, 1], -0.1)
+    base = tt.LTISystem.create(fx.A, fx.B, fx.D, fx.SMALL_X0, fx.SMALL_N)
+    small = dataclasses.replace(base, x0=torch.tensor(x0s, device=dev))
+    s_costs = (tt.TargetCost.create(fx.M, fx.XD, weights=fx.WX),
+               tt.ControlCost.create(fx.N_MAT, fx.UD, weights=fx.WU))
+    s_cons = (tt.TrajectoryBoundConstraint.create(fx.X_LOWER, fx.X_UPPER),
+              tt.ControlBoundConstraint.create(fx.U_LOWER, fx.U_UPPER))
+    mesh = make_mesh()
+    res, solve_ms = _once_ms(lambda: sharded_solve_mpc(
+        shard_batch(small, mesh, reference=batch_axes(small)), s_costs,
+        s_cons, mesh=mesh))
+    U, X = res.control.to_local(), res.trajectory.to_local()
+    golden = float(np.abs(U[0].cpu().numpy() - fx.GOLDEN_CONTROL).max())
+    preview = tt.condense(base)
+    eu = ex = 0.0
+    for lane in range(16):
+        qp = tt.build_qp(preview, small.x0[lane], s_costs, s_cons)
+        u = tt.solve_qp_native(qp).x.to(dev)
+        eu = max(eu, float((U[lane] - u).abs().max()))
+        ex = max(ex, float((X[lane] - preview.trajectory(
+            small.x0[lane], u)).abs().max()))
+    lines.append(
+        f"(b) sharded_solve_mpc (16 lanes, N = 10, f64, default options) "
+        f"in {solve_ms:.1f} ms: lane 0 against the golden control "
+        f"{golden:.3e} (tol {GOLDEN_U_TOL}); every lane against the native "
+        f"oracle: control {eu:.3e} (tol {GOLDEN_U_TOL}), trajectory "
+        f"{ex:.3e} (tol {GOLDEN_X_TOL}) {tag}")
+    if not (golden <= GOLDEN_U_TOL and eu <= GOLDEN_U_TOL
+            and ex <= GOLDEN_X_TOL):
+        fail(f"phase 31 (b): {lines[-1]}")
+
+    # (c) model parallel, f64: the golden QP, then config 4 at N = 300
+    mmesh = make_mesh(axis_names=("model",))
+    lockstep = dict(early_exit=False, polish=False, row_normalize=False,
+                    scaling=0, kkt_solve="inverse")
+    gqp = tt.build_qp(preview, base.x0.to(dev), s_costs, s_cons)
+    opts = tt.SolverOptions(max_iter=MP_GOLDEN_ITERS, **lockstep)
+    e_gold = float((solve_qp_model_parallel(gqp, opts, mesh=mmesh).x
+                    - tt.solve_qp(gqp, opts).x).abs().max())
+    arrays, _, _ = build_fleet(DP_TP_LANES, WIDE_HORIZON)
+    f64 = lambda a: torch.tensor(np.asarray(a, np.float64), device=dev)
+    lanes = tt.LTVSystem(*(f64(a) for a in arrays))
+    w_costs = (tt.TargetCost.create(np.eye(2), [0.0, -1.0],
+                                    weights=[10.0, 1e4]),
+               tt.ControlCost.create([[1.0]], [2.0], weights=[1e-4]))
+    w_cons = (tt.TrajectoryBoundConstraint.create(fx.X_LOWER, fx.X_UPPER),
+              tt.ControlBoundConstraint.create([-BOUND], [BOUND]))
+    qp_b = tt.build_qp(tt.condense(lanes), lanes.x0, w_costs, w_cons)
+    qp = tt.DenseQP(**{f: getattr(qp_b, f)[0] if getattr(qp_b, f).dim() > nd
+                       else getattr(qp_b, f) for f, nd in _BASE_NDIM.items()})
+    n, m = qp.nr_vars, qp.nr_eq + qp.nr_ineq + qp.nr_vars
+    opts = tt.SolverOptions(max_iter=MP_WIDE_ITERS, **lockstep)
+    with _collectives.recording() as calls:
+        sol = solve_qp_model_parallel(qp, opts, mesh=mmesh)
+    counts = collections.Counter(op for op, _, _ in calls)
+    ref = tt.solve_qp(qp, opts)
+    e_wide = max(_rel(sol.x, ref.x), _rel(sol.y[:m], ref.y),
+                 _rel(sol.z[:m], ref.z))
+    mp_ms = _cuda_ms(lambda: solve_qp_model_parallel(qp, opts, mesh=mmesh),
+                     3)
+    ref_ms = _cuda_ms(lambda: tt.solve_qp(qp, opts), 3)
+    reduces = counts.get("psum", 0) + counts.get("pmax", 0)
+    dmesh = make_mesh((1, 1), ("batch", "model"))
+    dsol = solve_qp_dp_tp(qp_b, opts, mesh=dmesh)
+    dref = tt.solve_qp(qp_b, opts)
+    e_dp = max(_rel(dsol.x.to_local(), dref.x),
+               _rel(dsol.y.to_local()[:, :m], dref.y))
+    dp_ms = _cuda_ms(lambda: solve_qp_dp_tp(qp_b, opts, mesh=dmesh), 3)
+    dref_ms = _cuda_ms(lambda: tt.solve_qp(qp_b, opts), 3)
+    lines.append(
+        f"(c) solve_qp_model_parallel, f64: the golden QP "
+        f"({MP_GOLDEN_ITERS} iterations) against solve_qp {e_gold:.3e} "
+        f"(tol {MP_TOL}); config 4's lane at N = {WIDE_HORIZON} (n = {n}, "
+        f"m = {m}, {MP_WIDE_ITERS} iterations) {e_wide:.3e} relative (tol "
+        f"{MP_TOL}), {mp_ms / MP_WIDE_ITERS:.4f} ms an iteration (solve_qp "
+        f"{ref_ms / MP_WIDE_ITERS:.4f}), {reduces} all-reduces "
+        f"({MP_WIDE_ITERS} + {reduces - MP_WIDE_ITERS}) and "
+        f"{counts.get('all_gather', 0)} all-gather a solve; solve_qp_dp_tp "
+        f"on a (1, 1) mesh over {DP_TP_LANES} such lanes {e_dp:.3e} "
+        f"relative, {dp_ms:.3f} ms a solve (solve_qp {dref_ms:.3f}) {tag}")
+    if not (e_gold <= MP_TOL and e_wide <= MP_TOL and e_dp <= MP_TOL):
+        fail(f"phase 31 (c): {lines[-1]}")
+
+    # (d) horizon-sharded LQR at config 5's LQ width
+    smesh = make_mesh(axis_names=("seq",))
+    bmesh = make_mesh((1, 1), ("batch", "seq"))
+    one = tuple(t[0] for t in lq)
+    cases = (
+        ("lqr_solve_sharded (lane 0)", one,
+         lambda: lqr_solve_sharded(*one, mesh=smesh)),
+        (f"lqr_solve_sharded_batch ({lq[0].shape[0]} lanes)", lq,
+         lambda: lqr_solve_sharded_batch(*lq, mesh=bmesh)))
+    worst = 0.0
+    for name, args, fn in cases:
+        got = tuple(t.full_tensor() for t in fn())
+        serial, assoc = tr.lqr_solve(*args), tr.lqr_solve_assoc(*args)
+        err = max(_rel(g, w) for ref in (serial, assoc)
+                  for g, w in zip(got, ref))
+        worst = max(worst, err)
+        lines.append(
+            f"(d) {name}, N = {args[0].shape[-3]}, x = {args[0].shape[-1]}, "
+            f"u = {args[1].shape[-1]}, f64: {err:.3e} relative against "
+            f"lqr_solve and lqr_solve_assoc (tol {LQ_TOL}); "
+            f"{_cuda_ms(fn, 3):.4f} ms (lqr_solve "
+            f"{_cuda_ms(lambda: tr.lqr_solve(*args), 3):.4f}, "
+            f"lqr_solve_assoc "
+            f"{_cuda_ms(lambda: tr.lqr_solve_assoc(*args), 3):.4f}) {tag}")
+    if not worst <= LQ_TOL:
+        fail(f"phase 31 (d): {lines[-2:]}")
+
+    # (e) the cold step's warm start, sharded, through DCP
+    out = os.path.join("smoke_out", "parallel_dcp")
+    shutil.rmtree(out, ignore_errors=True)
+    _, save_ms = _once_ms(lambda: save_pytree_dcp(out, warm))
+    loaded, load_ms = _once_ms(lambda: load_pytree_dcp(
+        out, tree_map(torch.zeros_like, warm)))
+    kept = all(a.placements == b.placements and torch.equal(
+        a.to_local(), b.to_local()) for a, b in (
+        (loaded.x, warm.x), (loaded.y, warm.y), (loaded.z, warm.z)))
+    r1, _ = step(sharded, warm)
+    r2, _ = step(sharded, loaded)
+    resumed = all(torch.equal(a.to_local(), b.to_local()) for a, b in (
+        (r1.control, r2.control), (r1.solution.x, r2.solution.x),
+        (r1.solution.y, r2.solution.y), (r1.solution.z, r2.solution.z)))
+    shutil.rmtree(out)
+    lines.append(
+        f"(e) DCP of the Shard(0) warm start ({tuple(warm.y.shape)} "
+        f"{warm.y.dtype}): save {save_ms:.1f} ms, load {load_ms:.1f} ms, "
+        f"placements and bits kept {kept}, one step resumed bit for bit "
+        f"{resumed} {tag}")
+    if not (kept and resumed):
+        fail(f"phase 31 (e): {lines[-1]}")
+
+    dist.destroy_process_group()
+    for line in lines:
+        print(f"parallel layer: {line}")
+    print(f"parallel layer: phase 31 in {time.perf_counter() - t_phase:.1f} "
+          f"s {tag}")
+
+
 def main() -> int:
     import torch
 
@@ -4003,7 +4273,7 @@ def main() -> int:
         kernels[entry]["launches"] += chained_stagewise_phase(
             tt, sk, cfg, reset_counts, probe[entry][1])
     # phase 22: the log-depth forms against their serial forms
-    assoc_phase(tt, dev, build_fleet(BATCH, HORIZON)[0], configs[1])
+    lq5 = assoc_phase(tt, dev, build_fleet(BATCH, HORIZON)[0], configs[1])
     # phases 23-26: the no-knobs layer on K4/K5
     for entry, n in early_exit_phase(tt, sk, configs, reset_counts).items():
         kernels[entry]["launches"] += n
@@ -4022,6 +4292,8 @@ def main() -> int:
     metrics_phase(loop)
     for entry, n in examples_phase(tt, sk, reset_counts).items():
         kernels[entry]["launches"] += n
+    # phase 31: the parallel layer, NCCL at world 1
+    parallel_phase(tt, dev, smi[0] if smi else name, lq5)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_wide)
     order = ("fused_admm_box_lanes", "fused_admm_box",

@@ -15,7 +15,9 @@ one-shot ``solve``, the log-depth forms (``lqr_solve_assoc``,
 ``condense_lti_assoc``, ``condense_ltv_assoc``), and the modules a
 controller is wrapped in: :mod:`.receding` (the closed loop),
 :mod:`.checkpoint` (save and resume) and :mod:`.profiling` (spans, timing,
-metrics and device time from a trace).  On a CUDA device the multistep chains run as
+metrics and device time from a trace); and :mod:`.parallel`, the
+scenario batch and, on ``torch.distributed``, the meshes, the sharded
+serving step and the model- and horizon-parallel solves.  On a CUDA device the multistep chains run as
 CUDA graphs, their ticks free of host syncs.  The fixed-count ADMM
 iterations and the batched Cholesky run in hand-written CUDA kernels
 (``csrc/admm_box.cu``, ``csrc/admm_box_shared.cu``,

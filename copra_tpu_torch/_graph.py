@@ -27,19 +27,23 @@ import torch
 Tensor = torch.Tensor
 
 
-def tree_map(fn: Callable, tree):
+def tree_map(fn: Callable, tree, *rest):
     """``fn`` on every tensor of a tree of tuples, lists and dataclasses
-    (``None`` and other leaves are kept)."""
+    (``None`` and other leaves are kept).  ``rest``: trees of the same
+    structure whose items at a tensor's place (of any type: a ``*_axes``
+    tree holds ``0`` or ``None``) are passed after it."""
     if isinstance(tree, Tensor):
-        return fn(tree)
+        return fn(tree, *rest)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: tree_map(fn, getattr(tree, f.name))
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(tree) if f.init})
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, t) for t in tree))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, t) for t in tree)
+        parts = (tree_map(fn, *items) for items in zip(tree, *rest))
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*parts)
+        return type(tree)(parts)
     return tree
 
 

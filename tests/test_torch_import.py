@@ -21,6 +21,8 @@ import copra_tpu_torch.qp.riccati, copra_tpu_torch._scan
 import copra_tpu_torch._graph, copra_tpu_torch.ops.counts
 import copra_tpu_torch.solve, copra_tpu_torch.ops.polish
 import copra_tpu_torch.receding, copra_tpu_torch.checkpoint
+import copra_tpu_torch.parallel.mesh, copra_tpu_torch.parallel.model
+import copra_tpu_torch.parallel.horizon, copra_tpu_torch.parallel._collectives
 copra_tpu_torch.make_plan_multistep, copra_tpu_torch.make_stagewise_multistep
 copra_tpu_torch.solve, copra_tpu_torch.make_stagewise_server
 copra_tpu_torch.LMPC, copra_tpu_torch.solve_qp_batched
@@ -36,7 +38,7 @@ _EXAMPLES = """
 import sys
 sys.path.insert(0, 'examples')
 import torch_getting_started, torch_bipedal_walking
-import torch_quadruped_srb, torch_fleet_serving
+import torch_quadruped_srb, torch_fleet_serving, torch_batched_serving
 from copra_tpu_torch.profiling import trace_span, trace_device_time
 from copra_tpu_torch.checkpoint import save_pytree_dcp
 bad = sorted(m for m in sys.modules
@@ -97,6 +99,19 @@ def test_public_names_still_to_port():
     assert missing == set()
     for name in copra_tpu_torch.__all__:
         assert getattr(copra_tpu_torch, name) is not None, name
+
+
+def test_parallel_exports_every_reference_name():
+    """``copra_tpu_torch.parallel`` exports the 13 names of the
+    reference's ``copra_tpu.parallel``; each resolves."""
+    import copra_tpu.parallel
+    import copra_tpu_torch.parallel
+
+    assert len(copra_tpu.parallel.__all__) == 13
+    assert set(copra_tpu_torch.parallel.__all__) == set(
+        copra_tpu.parallel.__all__)
+    for name in copra_tpu_torch.parallel.__all__:
+        assert callable(getattr(copra_tpu_torch.parallel, name)), name
 
 
 def test_every_kernel_wrapper_registers_its_count():
