@@ -244,7 +244,34 @@ Phases, one line or more each:
     22's config-5 width (512 lanes, N = 300, no cross term) against
     ``lqr_solve`` and ``lqr_solve_assoc`` (1e-9 relative); a ``Shard(0)``
     DTensor warm start through DCP, one step resumed bit for bit.  Times
-    are CUDA events; each line carries the card's name and power limit.
+    are CUDA events; each line carries the card's name and power limit;
+32. gradients on the card, float64: (a) ``torch.func.jacfwd`` of config
+    4's served controls (B = 4096, N = 100) in x0 through the plain
+    accurate tick (``use_fused=False``), against central differences on
+    every lane smooth on the stencil (rtol 1e-3; lanes 0, 1, 17, 4095
+    printed) and against the CPU port on those four lanes (1e-6 x max
+    |J|), the kernel tick refusing and, under ``no_grad``, launching K1;
+    (b) learned tuning at config 4's width: ``backward()`` through
+    ``solve_mpc_batch`` (100 fixed iterations, no polish) of a
+    velocity-tracking loss in the log of the target weights, against
+    central differences (rtol 1e-3), forward + backward ms and peak
+    memory; (c) ``jacfwd`` of config 5's U (512 lanes, N = 300) through
+    the early-exit ``solve_stagewise``: the plain loop on the card with no
+    K4 launch, the same call under ``no_grad`` on K4, against central
+    differences and the CPU port on lane 0; (d) every kernel route (K1,
+    K2, K3, K4 and K5 ticks, K6, K7, K8, both chains at the capture and at
+    a replay, the f64 polish) and ``solve(engine="native")`` refuse a
+    gradient asked by ``requires_grad``, ``torch.func.vjp`` and a
+    forward-mode tangent, naming the plain route, and launch (solve)
+    under ``no_grad``; peak device memory of each case;
+33. the fuzz suites on the card (``tests/_fuzz_draw.py``, the reference's
+    seeds and gates): the 14 front-end draws through ``solve`` (1e-5
+    relative to the native oracle, replay 1e-8) and ``engine=
+    "stagewise"`` (1e-4); the plan step's receding ticks (oracle 1e-5,
+    a fresh ``solve`` 2e-5); the stagewise step's warm ticks on K4
+    (1e-4); ``make_stagewise_step(backend="fused")`` against
+    ``backend="xla"`` on float32 draws, 3 ticks (5e-5); each draw's
+    (x, u, N, r), its error and the launches.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  A chain's
@@ -4096,6 +4123,634 @@ def parallel_phase(tt, dev, card: str, lq):
           f"s {tag}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-33: gradients on the card, and the fuzz suites
+# ---------------------------------------------------------------------------
+
+GRAD_LANES = (0, 1, 17, BATCH - 1)
+GRAD_RTOL = 1e-3        # a derivative against central differences
+GRAD_PORT_TOL = 1e-6    # the card's Jacobian against the CPU port's
+# a kink inside the central-difference stencil (a clamp or a snap that
+# changes side) whose slope jumps by j parts a lane's one-sided slopes by
+# j and moves its central difference by up to j / 2: lanes whose slopes
+# part by more than the gate (a share of the lane's max |J|) are no check
+SMOOTH_TOL = GRAD_RTOL
+PLAN_FD_EPS = 1e-3      # (a): the f32 correction's rounding needs a wide step
+TUNE_ITERS, TUNE_FD_EPS = 100, 1e-5
+# (c): the plain loop under jacfwd costs ~0.8 s an iteration at N = 300
+# (host-bound), so the early-exit solve is capped at two chunks
+EE_GRAD_ITERS, EE_FD_EPS = 20, 1e-5
+FUZZ_CASES = 14
+GUARD_REPS = 10000
+FUZZ_RECEDING_SEEDS, FUZZ_STAGEWISE_SEEDS, FUZZ_FUSED_SEEDS = (
+    (0, 2, 4, 7, 11), (1, 3, 6, 8), (0, 5, 12))
+
+
+def _peak_gb(base: int) -> str:
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak device memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f}"
+            f" GB above the case's start)")
+
+
+def _case_start() -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _fd_lanes(J, f, eps: float):
+    """Central differences of ``f`` against its Jacobian ``J [B, ..., k]``
+    at 0; ``f`` maps a displacement ``d [k]`` of every lane's state to a
+    ``[B, ...]`` result (lanes independent, so ``J``'s lane ``b`` is
+    ``d f_b / d x0_b``).  Returns per lane ``(smooth, rel)``: whether its
+    one-sided slopes agree within ``SMOOTH_TOL`` x its max |J| (a kink in
+    the stencil parts them by the slope's jump), and max |J - central| /
+    max |J|.  The differences run under ``no_grad`` (the kernel routes)."""
+    import torch
+
+    k = J.shape[-1]
+    E = torch.eye(k, dtype=J.dtype, device=J.device) * eps
+    with torch.no_grad():
+        f0 = f(torch.zeros(k, dtype=J.dtype, device=J.device))[..., None]
+        fp = torch.stack([f(e) for e in E], -1)
+        fm = torch.stack([f(-e) for e in E], -1)
+    dims = tuple(range(1, J.dim()))
+    scale = J.abs().amax(dims).clamp_min(1e-300)
+    kink = ((fp - f0) - (f0 - fm)).abs().amax(dims) / eps / scale
+    rel = (J - (fp - fm) / (2 * eps)).abs().amax(dims) / scale
+    return kink <= SMOOTH_TOL, rel
+
+
+def _fd_verdict(what: str, smooth, rel, lanes) -> str:
+    """Gate the smooth lanes at ``GRAD_RTOL`` (at least half of them must
+    be smooth) and describe ``lanes``."""
+    import torch
+
+    n, B = int(smooth.sum()), smooth.numel()
+    worst = float(rel[smooth].max()) if n else float("nan")
+    named = ", ".join(f"{lane}: {float(rel[lane]):.2e}"
+                      f"{'' if bool(smooth[lane]) else ' (kink)'}"
+                      for lane in lanes)
+    if n * 2 < B:
+        fail(f"{what}: only {n} of {B} lanes are smooth on the "
+             f"central-difference stencil")
+    if not worst <= GRAD_RTOL:
+        fail(f"{what}: the derivative is {worst:.3e} from central "
+             f"differences (rtol {GRAD_RTOL}) on lane "
+             f"{int(torch.where(smooth, rel, 0.0).argmax())}; {n} of {B} "
+             f"lanes smooth on the stencil")
+    return (f"central differences on the {n} of {B} lanes smooth on the "
+            f"stencil max rel {worst:.3e} (rtol {GRAD_RTOL}; lanes {named})")
+
+
+def _refuses(what: str, call, x, route: str) -> str:
+    """``call(x)`` with a gradient asked of ``x`` by ``requires_grad``, by
+    ``torch.func.vjp`` and by a forward-mode tangent: each must raise the
+    refusal naming ``route``."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    def forward_mode():
+        with fwAD.dual_level():
+            return call(fwAD.make_dual(x, torch.ones_like(x)))
+
+    ways = {"requires_grad": lambda: call(x.detach().clone()
+                                          .requires_grad_()),
+            "torch.func.vjp": lambda: torch.func.vjp(call, x),
+            "forward-mode AD": forward_mode}
+    for way, run in ways.items():
+        try:
+            run()
+        except RuntimeError as e:
+            if "has no derivative" in str(e) and route in str(e):
+                continue
+            fail(f"{what}: a gradient asked by {way} raised another error: "
+                 f"{e}")
+        fail(f"{what}: a gradient asked by {way} did not raise")
+    return f"refuses ({', '.join(ways)}) naming {route}"
+
+
+def _launches_under_no_grad(what: str, call, x, wrappers, reset_counts):
+    """``call(x)`` under ``no_grad`` on a ``requires_grad`` copy of ``x``:
+    it must launch one of ``wrappers``.  Returns the launches."""
+    import torch
+
+    reset_counts()
+    with torch.no_grad():
+        call(x.detach().clone().requires_grad_())
+    torch.cuda.synchronize()
+    n = sum(w.launches for w in wrappers)
+    if n == 0:
+        fail(f"{what}: under no_grad no kernel was launched")
+    return n
+
+
+def grad_plan_case(tt, ak, plan, opts, step, x0s, x0_dev, reset_counts,
+                   card):
+    """Phase 32 (a): ``jacfwd`` of config 4's served controls in x0 through
+    the plain accurate tick (``use_fused=False``) on the card, against
+    central differences and the CPU port on lanes 0, 1, 17 and B-1; the
+    kernel tick (default ``use_fused``) refuses and, under ``no_grad``,
+    launches K1.  Returns the K1 launches."""
+    import torch
+    from copra_tpu_torch._graph import tree_map
+    from copra_tpu_torch.plan import _slice_plan
+
+    f64 = torch.float64
+    plain = tt.make_plan_step(plan, opts, batched=True, seed_center=x0s,
+                              accurate=True, accurate_rounds=ROUNDS,
+                              use_fused=False)
+    x0 = x0_dev[-1].to(f64)
+    zero = torch.zeros(2, dtype=f64, device=x0.device)
+
+    def served(d):
+        return plain(plan, x0 + d, None)[0]
+
+    base = _case_start()
+    _, fwd_ms = _once_ms(lambda: served(zero))
+    J, ms = _once_ms(lambda: torch.func.jacfwd(served)(zero))
+    mem = _peak_gb(base)
+    if tuple(J.shape) != (BATCH, HORIZON, 2) or \
+            not bool(torch.isfinite(J).all()):
+        fail(f"config 4 jacfwd: shape {tuple(J.shape)} or non-finite")
+    fd = _fd_verdict("config 4 jacfwd", *_fd_lanes(J, served, PLAN_FD_EPS),
+                     GRAD_LANES)
+    idx = np.asarray(GRAD_LANES)
+    cplan = _slice_plan(tree_map(lambda t: t.cpu(), plan), idx)
+    cstep = tt.make_plan_step(cplan, opts, batched=True,
+                              seed_center=x0s[idx], accurate=True,
+                              accurate_rounds=ROUNDS, use_fused=False)
+    xc = x0[idx].cpu()
+    Jc = torch.func.jacfwd(lambda d: cstep(cplan, xc + d, None)[0])(
+        zero.cpu())
+    port = float((J[idx].cpu() - Jc).abs().max() / Jc.abs().max())
+    kernel_tick = lambda x: step(plan, x, None)
+    refusal = _refuses("config 4's kernel tick", kernel_tick, x0,
+                       "use_fused=False")
+    n = _launches_under_no_grad("config 4's kernel tick", kernel_tick, x0,
+                                (ak.fused_admm_box_lanes,), reset_counts)
+    print(f"gradients (a) config 4, B = {BATCH}, N = {HORIZON}, accurate "
+          f"tick with use_fused=False, f64 x0: torch.func.jacfwd of U "
+          f"[{BATCH}, {HORIZON}] in x0 {ms:.2f} ms (the tick alone "
+          f"{fwd_ms:.2f} ms; CUDA events), max |J| {float(J.abs().max()):.4g};"
+          f" {fd}; the CPU port on lanes {list(GRAD_LANES)} {port:.3e} x max"
+          f" |J| (tol {GRAD_PORT_TOL}); {mem}; the kernel tick {refusal}, "
+          f"under no_grad {n} K1 launches ({card})")
+    if not port <= GRAD_PORT_TOL:
+        fail(f"config 4 jacfwd: {port:.3e} from the CPU port")
+    return n
+
+
+def grad_tuning_case(tt, dev, card):
+    """Phase 32 (b): learned tuning at config 4's width: the gradient of a
+    velocity-tracking loss over the 4096 lanes in the log of the target
+    weights, by ``backward()`` through ``solve_mpc_batch`` (f64,
+    ``TUNE_ITERS`` fixed iterations, no polish), against central
+    differences."""
+    import torch
+
+    f64 = torch.float64
+    arrays, _, _ = build_fleet(BATCH, HORIZON)
+    system = tt.LTVSystem(*(torch.tensor(a.astype(np.float64), device=dev)
+                            for a in arrays))
+    opts = tt.SolverOptions(max_iter=TUNE_ITERS, early_exit=False,
+                            polish=False)
+    eye = torch.eye(2, dtype=f64, device=dev)
+    target = torch.tensor([0.0, -1.0], dtype=f64, device=dev)
+
+    def loss(log_w):
+        costs = (tt.TargetCost(M=eye, p=target, weights=torch.exp(log_w)),
+                 tt.ControlCost.create([[1.0]], [2.0], weights=[1e-4]))
+        constraints = (tt.ControlBoundConstraint.create([-BOUND], [BOUND]),)
+        res = tt.solve_mpc_batch(system, costs, constraints, opts)
+        return ((res.trajectory[..., 1::2] + 1.0) ** 2).sum()
+
+    lw0 = torch.log(torch.tensor([10.0, 1e4], dtype=f64, device=dev))
+    with torch.no_grad():
+        _, fwd_ms = _once_ms(lambda: loss(lw0))
+    base = _case_start()
+    lw = lw0.clone().requires_grad_()
+    _, ms = _once_ms(lambda: loss(lw).backward())
+    mem = _peak_gb(base)
+    g = lw.grad
+    with torch.no_grad():
+        fd = torch.stack([(loss(lw0 + e) - loss(lw0 - e)) / (2 * TUNE_FD_EPS)
+                          for e in eye * TUNE_FD_EPS])
+    err = float((g - fd).abs().max() / fd.abs().max())
+    print(f"gradients (b) learned tuning at config 4's width: "
+          f"solve_mpc_batch, B = {BATCH}, N = {HORIZON}, f64, {TUNE_ITERS} "
+          f"fixed iterations, no polish: d loss / d log(target weights) = "
+          f"{[float(v) for v in g]} by backward(), forward + backward "
+          f"{ms:.2f} ms (the forward alone under no_grad {fwd_ms:.2f} ms; "
+          f"CUDA events); central differences {[float(v) for v in fd]}, "
+          f"{err:.3e} x max |fd| (rtol {GRAD_RTOL}); {mem} ({card})")
+    if not (bool(torch.isfinite(g).all()) and err <= GRAD_RTOL):
+        fail(f"learned tuning: the gradient is {err:.3e} from central "
+             f"differences")
+
+
+def grad_stagewise_case(tt, sk, cfg5, reset_counts, card):
+    """Phase 32 (c): config 5's fleet in f64 through ``solve_stagewise``
+    with the early exit: ``jacfwd`` of U in x0 runs the plain loop on the
+    card (no K4 launch), the same call under ``no_grad`` runs K4; the
+    Jacobian against central differences (taken on the K4 route) and,
+    on lane 0, against the CPU port.  Returns the K4 launches."""
+    import dataclasses
+
+    import torch
+
+    f64 = torch.float64
+    sqp = _on(cfg5["fleet"], cfg5["fleet"].A.device, f64)
+    opts = cfg5["cold_opts"].replace(max_iter=EE_GRAD_ITERS, early_exit=True,
+                                     eps_rel=0.0, check_interval=10)
+    zero = torch.zeros(3, dtype=f64, device=sqp.A.device)
+    entries = (sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed)
+
+    def solved(d, s=sqp):
+        return tt.solve_stagewise(dataclasses.replace(s, x0=s.x0 + d),
+                                  opts)[1]
+
+    reset_counts()
+    base = _case_start()
+    J, ms = _once_ms(lambda: torch.func.jacfwd(solved)(zero))
+    mem = _peak_gb(base)
+    in_jac = sum(w.launches for w in entries)
+    reset_counts()
+    with torch.no_grad():
+        U, k4_ms = _once_ms(lambda: solved(zero))
+    n = sum(w.launches for w in entries)
+    lanes = sqp.A.shape[0]
+    if in_jac != 0 or n == 0:
+        fail(f"config 5 jacfwd: {in_jac} tick-kernel launches inside the "
+             f"derivative (want 0), {n} under no_grad (want > 0)")
+    if not bool(torch.isfinite(J).all()):
+        fail("config 5 jacfwd: non-finite Jacobian")
+    fd = _fd_verdict("config 5 jacfwd", *_fd_lanes(J, solved, EE_FD_EPS),
+                     (0, lanes - 1))
+    cpu = _on(sqp, "cpu", f64, slice(0, 1))
+    t0 = time.perf_counter()
+    Jc = torch.func.jacfwd(lambda d: solved(d, cpu))(zero.cpu())
+    cpu_s = time.perf_counter() - t0
+    port = float((J[:1].cpu() - Jc).abs().max() / Jc.abs().max())
+    print(f"gradients (c) config 5, {lanes} lanes, N = {sqp.horizon}, f64, "
+          f"solve_stagewise with early exit (eps_abs {opts.eps_abs:g}, rho "
+          f"{opts.rho:g}, a check every 10, {EE_GRAD_ITERS} iterations at "
+          f"most): torch.func.jacfwd of U in x0 on the plain loop "
+          f"{ms:.1f} ms with {in_jac} tick-kernel launches; the same call "
+          f"under no_grad on K4 {k4_ms:.2f} ms with {n} launches; {fd}; the "
+          f"CPU port on lane 0 {port:.3e} x max |J| (tol {GRAD_PORT_TOL}; "
+          f"its jacfwd {cpu_s:.1f} s); {mem} ({card})")
+    if not port <= GRAD_PORT_TOL:
+        fail(f"config 5 jacfwd: {port:.3e} from the CPU port")
+    return n
+
+
+def grad_routes_case(tt, ak, ck, sk, plan, opts, step, x0s, x0_dev, cfgs,
+                     configs, reset_counts, card):
+    """Phase 32 (d): every kernel route refuses a gradient asked in each of
+    three ways, naming its plain route, and launches its kernel under
+    ``no_grad``: K1 (phase 4's tick), K2 (config 4's f32 fused tick), K3
+    (config 1's shared plan), K4 and K5 (``make_stagewise_step(backend=
+    "fused")`` on configs 5 and 6), K6 (config 2, ``use_fused=True``), K7
+    and K8 (``ops``), both chains (at the capture and at a replay), the
+    f64 polish, and ``solve(engine="native")`` (which solves under
+    ``no_grad``).  Returns the launches by wrapper name."""
+    import dataclasses
+
+    import torch
+    from copra_tpu_torch.ops.polish import polish
+
+    launches = {}
+
+    def route(what, call, x, wrappers, plain):
+        refusal = _refuses(what, call, x, plain)
+        n = _launches_under_no_grad(what, call, x, wrappers, reset_counts)
+        for w in wrappers:
+            launches[w.__name__] = launches.get(w.__name__, 0) + w.launches
+        return f"{what}: {refusal}; under no_grad {n} launches"
+
+    # the guard's host cost: the test a K1 launch makes of its 8 tensors
+    from copra_tpu_torch.ops._derivative import asks_gradient
+
+    x4 = x0_dev[0]
+    guard_args = (*step.state[:2], *([x4] * 6))
+    t0 = time.perf_counter()
+    for _ in range(GUARD_REPS):
+        asks_gradient(*guard_args)
+    guard_us = (time.perf_counter() - t0) * 1e6 / GUARD_REPS
+    lines = [f"the launch guard (asks_gradient over a K1 launch's 8 tensors) "
+             f"{guard_us:.2f} us of host time a launch, mean of "
+             f"{GUARD_REPS}"]
+    lines.append(route("K1, config 4's accurate tick",
+                       lambda x: step(plan, x, None), x4,
+                       (ak.fused_admm_box_lanes,), "use_fused=False"))
+    plan32 = f32_plan(plan)
+    f32_tick = tt.make_plan_step(plan32, opts, batched=True,
+                                 seed_center=x0s)
+    lines.append(route("K2, config 4's f32 fused tick",
+                       lambda x: f32_tick(plan32, x, None), x4,
+                       (ak.fused_admm_box,), "use_fused=False"))
+    for name, wrapper in (("config 1", ak.fused_admm_box_shared),
+                          ("config 2", ak.fused_admm_general_shared)):
+        cfg = cfgs[name]
+        lines.append(route(
+            f"{'K3' if name == 'config 1' else 'K6'}, {name}'s tick",
+            lambda x, c=cfg: c["step"](c["plan"], x, None), cfg["x0_seq"][0],
+            (wrapper,), "use_fused=False"))
+    for cfg in configs:
+        wrapper = _entry(sk, cfg["fleet"])
+        lines.append(route(
+            f"{'K4' if wrapper is sk.fused_stagewise_tick else 'K5'}, "
+            f"{cfg['name']}'s fused tick", lambda x, c=cfg: c["tick"](x),
+            cfg["x0_seq"][0], (wrapper,), "backend='xla'"))
+    K7 = random_lanes_general(64, 10, 40, 3, x4.device)
+    lines.append(route(
+        "K7, fused_admm_general", lambda c: ak.fused_admm_general(
+            *K7[:2], c, *K7[3:], n_iter=10, sigma=1e-6, alpha=1.6),
+        K7[2], (ak.fused_admm_general,), "solve_qp_batched"))
+    M = torch.randn(64, 24, 24, device=x4.device, dtype=torch.float64,
+                    generator=torch.Generator(x4.device).manual_seed(5))
+    lines.append(route(
+        "K8, chol_batched", lambda a: ck.chol_batched(
+            a @ a.mT + 24.0 * torch.eye(24, dtype=a.dtype, device=a.device)),
+        M, (ck.chol_batched,), "torch.linalg.cholesky"))
+
+    # the chains: refused at the capture, and at a replay of a captured one
+    chain = tt.make_plan_multistep(plan, opts, seed_center=x0s,
+                                   accurate_rounds=ROUNDS)
+    seq = torch.stack(x0_dev[:3])
+    lines.append(route("make_plan_multistep", chain, seq,
+                       (ak.fused_admm_box_lanes,), "tick by tick"))
+    lines.append(f"make_plan_multistep, captured: "
+                 f"{_refuses('make_plan_multistep replay', chain, seq, 'tick by tick')}")
+    cfg5 = configs[1]
+    fleet = cfg5["fleet"]
+    with torch.no_grad():
+        warm = cfg5["tick"](cfg5["x0_seq"][0])[3]
+    chain5 = tt.make_stagewise_multistep(fleet, cfg5["opts"],
+                                         cold_options=cfg5["cold_opts"],
+                                         backend="fused")
+    stream = lambda x: chain5(x, 2, warm)
+    lines.append(route("make_stagewise_multistep", stream,
+                       cfg5["x0_seq"][1], (sk.fused_stagewise_tick,),
+                       "tick by tick"))
+    lines.append(f"make_stagewise_multistep, captured: "
+                 f"{_refuses('make_stagewise_multistep replay', stream, cfg5['x0_seq'][1], 'tick by tick')}")
+
+    # the f64 polish, called as a served tick calls it
+    popts = cfg5["cold_opts"].replace(polish_iters=20)
+    fp = sk.build_fused_plan(fleet, popts)
+    with torch.no_grad():
+        X0, U0, _, w = sk.solve_stagewise_fused(
+            fleet, popts.replace(polish_iters=0), return_warm=True, plan=fp)
+    w32, k32 = sk._pack_warm(fp, *w), sk._pack_work(fp, X0, U0)
+    N, x, u, r = fleet.horizon, fleet.xdim, fleet.udim, fleet.nr_rows
+    lines.append(route(
+        "the f64 polish", lambda xt: polish(
+            fp.polish, sk.fused_stagewise_tick, xt, w32, k32, n_iter=20,
+            N=N, x=x, u=u, r=r, options=popts),
+        fleet.x0.mT.contiguous(), (sk.fused_stagewise_tick,),
+        "backend='xla'"))
+
+    # the native engine on the golden SmallSystem: refused; under no_grad
+    # it solves
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import fixtures as fx
+
+    system = tt.LTISystem.create(fx.A, fx.B, fx.D, fx.SMALL_X0, fx.SMALL_N)
+    costs = (tt.TargetCost.create(fx.M, fx.XD, weights=fx.WX),
+             tt.ControlCost.create(fx.N_MAT, fx.UD, weights=fx.WU))
+    cons = (tt.ControlBoundConstraint.create(fx.U_LOWER, fx.U_UPPER),)
+    native = lambda x0: tt.solve(dataclasses.replace(system, x0=x0), costs,
+                                 cons, engine="native").control
+    refusal = _refuses("solve(engine='native')", native, system.x0,
+                       "engine='condensed'")
+    with torch.no_grad():
+        u_native = native(system.x0.clone().requires_grad_())
+    golden = float(np.abs(u_native.cpu().numpy()
+                          - fx.GOLDEN_CONTROL).max())
+    lines.append(f"solve(engine='native'): {refusal}; under no_grad it "
+                 f"solves, {golden:.2e} from the golden control (2e-4)")
+    if not golden <= 2e-4:
+        fail(f"solve(engine='native') under no_grad: u[0] {golden:.3e} "
+             f"from the golden control")
+    for line in lines:
+        print(f"gradients (d) {line} ({card})")
+    return launches
+
+
+def _fuzz_fleet(sqp, x0s):
+    """``sqp`` repeated over ``len(x0s)`` lanes, lane ``b`` at ``x0s[b]``."""
+    import dataclasses
+
+    import torch
+    from copra_tpu_torch._graph import tree_map
+
+    lanes = len(x0s)
+    sqp_b = tree_map(lambda a: a.expand((lanes,) + a.shape).contiguous(),
+                     sqp)
+    return dataclasses.replace(sqp_b, x0=torch.as_tensor(
+        np.asarray(x0s)).to(sqp.x0))
+
+
+def _fuzz_oracle(tt, plan, x0, U):
+    """Relative distance of ``U`` from the native oracle of the plan's QP
+    at ``x0``."""
+    ref = tt.solve_qp_native(tt.plan_qp(plan, np.asarray(x0, np.float64)))
+    if int(ref.status) != tt.STATUS_SOLVED:
+        fail(f"fuzz: the oracle did not solve: {ref.inform()}")
+    want = ref.x.numpy()
+    got = U.detach().reshape(-1).cpu().numpy()
+    scale = max(1.0, np.abs(want).max())
+    return np.abs(got - want).max() / scale, scale
+
+
+def _fuzz_step(system, x0, U):
+    """x_1 of the closed loop: the first control applied to the dynamics
+    (stage 0 of an LTV system)."""
+    from _fuzz_draw import host
+
+    A, B, d = (host(t) for t in (system.A, system.B, system.d))
+    if A.ndim == 3:
+        A, B, d = A[0], B[0], d[0]
+    return A @ np.asarray(x0) + B @ host(U).reshape(-1)[:B.shape[1]] + d
+
+
+def fuzz_phase(tt, sk, dev, reset_counts, card):
+    """Phase 33: the two fuzz suites on the card, the reference's draws
+    (``tests/_fuzz_draw.py``), seeds, ticks and gates: the 14 front-end
+    draws through ``solve`` (and ``engine="stagewise"`` where the draw is
+    per-stage expressible) against the native oracle; the plan step's
+    receding ticks against the oracle and a fresh ``solve``; the stagewise
+    step's warm ticks (K4) against the oracle; and on float32 draws
+    ``make_stagewise_step(backend="fused")`` against ``backend="xla"``, 3
+    ticks (5e-5).  Returns the tick kernels' launches by name."""
+    import dataclasses
+
+    import torch
+    from copra_tpu_torch._graph import tree_map
+    from copra_tpu_torch.qp.riccati import from_mpc, make_stagewise_step
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from _fuzz_draw import draw_problem
+
+    entries = (sk.fused_stagewise_tick, sk.fused_stagewise_tick_streamed)
+    launches = {}
+
+    def count():
+        for w in entries:
+            launches[w.__name__] = launches.get(w.__name__, 0) + w.launches
+
+    def dims(system, sqp):
+        r = sqp.nr_rows if sqp is not None else "-"
+        return f"(x, u, N, r) = ({system.xdim}, {system.udim}, " \
+               f"{system.horizon}, {r})"
+
+    t0 = time.perf_counter()
+    reset_counts()
+    worst = [0.0, 0.0]
+    for seed in range(FUZZ_CASES):
+        system, costs, cons, ok = draw_problem(tt, seed)
+        qp = tt.build_qp(tt.condense(system), system.x0, costs, cons)
+        ref = tt.solve_qp_native(qp)
+        if int(ref.status) != tt.STATUS_SOLVED:
+            fail(f"fuzz frontend seed {seed}: the oracle did not solve")
+        want = ref.x.numpy()
+        scale = max(1.0, np.abs(want).max())
+        res = tt.solve(system, costs, cons)
+        err = np.abs(res.control.cpu().numpy() - want).max() / scale
+        replay = float(tt.replay_dynamics(system, res.trajectory,
+                                          res.control))
+        sqp = from_mpc(system, costs, cons) if ok else None
+        line = (f"fuzz frontend seed {seed} {dims(system, sqp)}, m = "
+                f"{qp.Aeq.shape[0] + qp.Aineq.shape[0]}: solve status "
+                f"{int(res.solution.status)}, rel err {err:.2e} (gate 1e-5), "
+                f"replay {replay:.1e}")
+        if int(res.solution.status) != tt.STATUS_SOLVED or not err <= 1e-5 \
+                or not replay <= 1e-8:
+            fail(line)
+        worst[0] = max(worst[0], err)
+        if ok:
+            res_sw = tt.solve(system, costs, cons, engine="stagewise")
+            err_sw = np.abs(res_sw.control.cpu().numpy().reshape(-1)
+                            - want).max() / scale
+            line += f"; engine='stagewise' rel err {err_sw:.2e} (gate 1e-4)"
+            if not err_sw <= 1e-4:
+                fail(line)
+            worst[1] = max(worst[1], err_sw)
+        print(line)
+    torch.cuda.synchronize()
+    count()
+    print(f"fuzz frontend: {FUZZ_CASES} draws on the card, worst solve "
+          f"{worst[0]:.2e}, worst stagewise {worst[1]:.2e}; "
+          f"{sum(launches.values())} tick-kernel launches (the stagewise "
+          f"engine's early exit); {time.perf_counter() - t0:.1f} s ({card})")
+
+    # the serving suite: plan-step receding ticks
+    t0 = time.perf_counter()
+    for seed in FUZZ_RECEDING_SEEDS:
+        system, costs, cons, _ = draw_problem(tt, seed, eq_rows=False)
+        plan = tt.make_control_plan(system, costs, cons)
+        step = tt.make_plan_step(plan)
+        x0, warm, errs = system.x0.cpu().numpy(), None, []
+        for t in range(3):
+            U, sol, warm = step(torch.tensor(x0, device=dev), warm)
+            err_o, scale = _fuzz_oracle(tt, plan, x0, U)
+            fresh = tt.solve(dataclasses.replace(
+                system, x0=torch.tensor(x0, device=dev)), costs, cons)
+            err_f = float((U - fresh.control).abs().max()) / scale
+            errs.append((err_o, err_f))
+            if int(sol.status) != tt.STATUS_SOLVED or not err_o <= 1e-5 \
+                    or not err_f <= 2e-5:
+                fail(f"fuzz receding seed {seed} tick {t}: status "
+                     f"{int(sol.status)}, oracle {err_o:.2e}, fresh "
+                     f"{err_f:.2e}")
+            x0 = _fuzz_step(system, x0, U)
+        print(f"fuzz receding seed {seed} {dims(system, None)}: 3 plan-step "
+              f"ticks, worst oracle {max(e[0] for e in errs):.2e} (gate "
+              f"1e-5), worst fresh solve {max(e[1] for e in errs):.2e} "
+              f"(gate 2e-5)")
+
+    # the stagewise step's warm ticks on the card (backend auto: K4)
+    reset_counts()
+    for seed in FUZZ_STAGEWISE_SEEDS:
+        system, costs, cons, ok = draw_problem(tt, seed, eq_rows=False)
+        if not ok:
+            print(f"fuzz stagewise seed {seed}: stage-coupling draw, "
+                  f"skipped as the reference skips it")
+            continue
+        rng = np.random.default_rng(100 + seed)
+        xs = system.x0.cpu().numpy()[None] + 0.1 * rng.normal(
+            size=(3, system.xdim))
+        sqp = from_mpc(system, costs, cons)
+        tick = tt.make_stagewise_step(_fuzz_fleet(sqp, xs))
+        plan = tt.make_control_plan(system, costs, cons)
+        warm, worst_err = None, 0.0
+        for t in range(2):
+            X, U, info, warm = tick(torch.tensor(xs, device=dev), warm)
+            for lane in range(3):
+                err, _ = _fuzz_oracle(tt, plan, xs[lane], U[lane])
+                worst_err = max(worst_err, err)
+            xs = np.stack([_fuzz_step(system, xs[lane], U[lane])
+                           for lane in range(3)])
+        print(f"fuzz stagewise seed {seed} {dims(system, sqp)}: 2 ticks of "
+              f"3 lanes, backend {tick.backend}, worst oracle "
+              f"{worst_err:.2e} (gate 1e-4)")
+        if not worst_err <= 1e-4:
+            fail(f"fuzz stagewise seed {seed}: {worst_err:.3e} from the "
+                 f"oracle")
+    torch.cuda.synchronize()
+    stagewise_n = sum(w.launches for w in entries)
+    count()
+    if stagewise_n == 0:
+        fail("fuzz stagewise: the ticks never launched the tick kernel")
+
+    # the fused tick against the plain loop on float32 draws
+    for seed in FUZZ_FUSED_SEEDS:
+        system, costs, cons, ok = draw_problem(tt, seed, eq_rows=False)
+        if not ok:
+            print(f"fuzz fused seed {seed}: stage-coupling draw, skipped "
+                  f"as the reference skips it")
+            continue
+        sqp = tree_map(lambda a: a.to(torch.float32),
+                       from_mpc(system, costs, cons))
+        rng = np.random.default_rng(200 + seed)
+        x0s = system.x0.cpu().numpy().astype(np.float32)[None] + \
+            np.float32(0.05) * rng.normal(size=(2, system.xdim)).astype(
+                np.float32)
+        fleet = _fuzz_fleet(sqp, x0s)
+        opts = tt.SolverOptions(max_iter=25, early_exit=False)
+        tick_x = make_stagewise_step(fleet, opts, backend="xla")
+        tick_f = make_stagewise_step(fleet, opts, backend="fused")
+        entry = _entry(sk, fleet)
+        reset_counts()
+        warm_x = warm_f = None
+        diff = 0.0
+        for k in range(3):
+            x0k = torch.tensor(x0s + np.float32(0.01 * k), device=dev)
+            Xx, Ux, _, warm_x = tick_x(x0k, warm_x)
+            Xf, Uf, _, warm_f = tick_f(x0k, warm_f)
+            diff = max(diff, float((Uf - Ux).abs().max()),
+                       float((Xf - Xx).abs().max()))
+        torch.cuda.synchronize()
+        n = entry.launches
+        count()
+        print(f"fuzz fused seed {seed} {dims(system, sqp)}, f32, 2 lanes, "
+              f"25 iterations: {entry.__name__} against backend='xla' over "
+              f"3 ticks max |diff| {diff:.2e} (gate 5e-5), {n} launches")
+        if n == 0 or not diff <= 5e-5:
+            fail(f"fuzz fused seed {seed}: {n} launches, diff {diff:.3e}")
+    print(f"fuzz serving: {time.perf_counter() - t0:.1f} s; tick-kernel "
+          f"launches {launches} ({card})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4293,7 +4948,26 @@ def main() -> int:
     for entry, n in examples_phase(tt, sk, reset_counts).items():
         kernels[entry]["launches"] += n
     # phase 31: the parallel layer, NCCL at world 1
-    parallel_phase(tt, dev, smi[0] if smi else name, lq5)
+    card = smi[0] if smi else name
+    parallel_phase(tt, dev, card, lq5)
+    # phase 32: gradients on the card; the kernel routes refuse one
+    t_phase = time.perf_counter()
+    x0s4 = build_fleet(BATCH, HORIZON)[1]
+    k1["launches"] += grad_plan_case(tt, ak, plan, opts, step, x0s4, x0_dev,
+                                     reset_counts, card)
+    grad_tuning_case(tt, dev, card)
+    kernels["fused_stagewise_tick"]["launches"] += grad_stagewise_case(
+        tt, sk, configs[1], reset_counts, card)
+    for entry, n in grad_routes_case(tt, ak, ck, sk, plan, opts, step, x0s4,
+                                     x0_dev, cfgs, configs, reset_counts,
+                                     card).items():
+        kernels[entry]["launches"] += n
+    print(f"phase 32: {time.perf_counter() - t_phase:.1f} s")
+    # phase 33: the fuzz suites on the card
+    t_phase = time.perf_counter()
+    for entry, n in fuzz_phase(tt, sk, dev, reset_counts, card).items():
+        kernels[entry]["launches"] += n
+    print(f"phase 33: {time.perf_counter() - t_phase:.1f} s")
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_wide)
     order = ("fused_admm_box_lanes", "fused_admm_box",

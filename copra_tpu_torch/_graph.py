@@ -74,11 +74,20 @@ class CapturedChain:
     the same shapes copies them in, replays the graph and returns
     ``fn``'s outputs: tensors of the graph's memory, which the next call
     overwrites (callers that hand them out clone them).
+
+    A replay has no derivative: a gradient asked of the inputs, at the
+    capture or at a call, raises naming ``plain_route``, the eager call
+    that gives one.
     """
 
-    def __init__(self, fn: Callable, inputs: Sequence[Tensor], name: str):
+    def __init__(self, fn: Callable, inputs: Sequence[Tensor], name: str,
+                 plain_route: str):
+        from .ops._derivative import refuse_gradient
         from .ops.counts import COUNTED
 
+        self.entry = f"{name} (a captured CUDA graph)"
+        self.plain_route = plain_route
+        refuse_gradient(self.entry, plain_route, tuple(inputs))
         dev = inputs[0].device
         self.inputs = tuple(t.detach().clone() for t in inputs)
         with torch.cuda.device(dev):
@@ -110,6 +119,9 @@ class CapturedChain:
         self.outputs = outputs
 
     def __call__(self, *values: Tensor):
+        from .ops._derivative import refuse_gradient
+
+        refuse_gradient(self.entry, self.plain_route, values)
         for dst, v in zip(self.inputs, values):
             dst.copy_(v)
         self.graph.replay()

@@ -67,6 +67,7 @@ from .._precision import highest_precision
 from ..qp.admm import _inf_norm, _jacobi_inverse, _polish, _tolerances
 from ..qp.types import (STATUS_MAX_ITER, STATUS_SOLVED, DenseQP, QPSolution,
                         SolverOptions)
+from ._derivative import refuse_gradient
 from .build import load_library
 from .counts import counted
 
@@ -410,8 +411,16 @@ def _box_lanes_attributes(n: int, mode: int, refine: int = 0,
     return tuple(out)
 
 
+# the plain route of the box kernels' callers, named when a gradient is
+# asked of a launch
+_PLAIN_BOX = ("make_plan_step(..., use_fused=False) (the plain iteration; "
+              "solve_qp_batched in place of solve_qp_batched_fused)")
+
+
 def _launch(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma, alpha, rho,
             refine, assume_x0_zero, body="auto"):
+    refuse_gradient("fused_admm_box_lanes / fused_admm_box (csrc/"
+                    "admm_box.cu)", _PLAIN_BOX, Kinv, K, c, l, u, x0, y0, z0)
     vecs = (c, l, u, x0, y0, z0)
     if Kinv.dim() != 3 or K.dim() != 3:
         raise ValueError(
@@ -567,6 +576,8 @@ def _check_box_plans(lib) -> None:
 
 def _launch_box_shared(Kinv, K, c, l, u, x0, y0, z0, *, n_iter, sigma,
                        alpha, rho, refine, body="auto"):
+    refuse_gradient("fused_admm_box_shared (csrc/admm_box_shared.cu)",
+                    _PLAIN_BOX, Kinv, K, c, l, u, x0, y0, z0)
     vecs = (c, l, u, x0, y0, z0)
     B, n = _vec_shape(c)
     dev = Kinv.device
@@ -687,6 +698,9 @@ def _check_general_plans(lib) -> None:
 
 def _launch_general_shared(Kinv, K, C, rho_vec, l, u, e0, y0, z0, *,
                            n_iter, sigma, alpha, refine, body="auto"):
+    refuse_gradient("fused_admm_general_shared (csrc/admm_general_shared"
+                    ".cu)", "make_plan_step(..., use_fused=False) (the plain "
+                    "general step)", Kinv, K, C, rho_vec, l, u, e0, y0, z0)
     B, m = _vec_shape(l)
     n = Kinv.shape[-1] if Kinv.dim() == 2 else -1
     dev = Kinv.device
@@ -817,6 +831,9 @@ def _general_lanes_attributes(n: int, m: int, body: str = "auto"
 
 def _launch_general(Kinv, C, c, l, u, rho, x0, y0, z0, *, n_iter, sigma,
                     alpha, body="auto"):
+    refuse_gradient("fused_admm_general (csrc/admm_general.cu)",
+                    "solve_qp_batched (or admm_general_plain)", Kinv, C, c, l,
+                    u, rho, x0, y0, z0)
     if C.dim() != 3:
         raise ValueError(
             f"C must be per lane, [B, m, n], got {tuple(C.shape)}; a shared "

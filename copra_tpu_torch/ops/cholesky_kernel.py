@@ -38,6 +38,7 @@ from typing import Tuple
 import torch
 
 from ..qp.admm import _cholesky
+from ._derivative import refuse_gradient
 from .build import load_library
 from .counts import counted
 
@@ -171,6 +172,8 @@ def chol_plain(K: Tensor) -> Tensor:
 def _launch_chol(K: Tensor, body: str = "auto") -> Tensor:
     """One launch of ``csrc/chol_batched.cu`` on the CUDA tensor ``K [B, n,
     n]`` with the body ``body`` ("auto", "small" or "block")."""
+    refuse_gradient("chol_batched (csrc/chol_batched.cu)",
+                    "torch.linalg.cholesky (or chol_plain)", K)
     if not K.is_contiguous():
         raise ValueError("K must be contiguous")
     B, n, _ = K.shape

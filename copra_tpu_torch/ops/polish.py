@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .._precision import highest_precision
+from ._derivative import refuse_gradient
 
 Tensor = torch.Tensor
 
@@ -125,7 +126,13 @@ def polish(pp: PolishPlan, entry, x0: Tensor, warm: Tensor, work: Tensor,
     the float32 phase, so the launch counts with it) on ``pp``, the
     proximal centre carried from ``work``.  Returns the polished
     ``(warm, work)`` in float32.  ``skip``: the device flag of a top-up
-    (set, the launch returns its state as given).  No host sync."""
+    (set, the launch returns its state as given).  No host sync.  On
+    CUDA a gradient asked of it raises (the kernel has no derivative)."""
+    if pp.plan.is_cuda:
+        refuse_gradient("the float64 polish (options.polish_iters > 0, "
+                        "csrc/stagewise_tick.cu)", "make_stagewise_step(..., "
+                        "backend='xla') (the plain loop, unpolished)", pp,
+                        x0, warm, work)
     f64 = torch.float64
     w64, k64 = entry(pp.plan, x0.to(f64), warm.to(f64), n_iter=int(n_iter),
                      N=N, x=x, u=u, r=r,

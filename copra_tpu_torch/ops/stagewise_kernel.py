@@ -39,6 +39,7 @@ import torch
 
 from .._precision import highest_precision
 from .._tensors import matvec as _mv, matvec_t as _mtv
+from ._derivative import refuse_gradient
 from .build import load_library
 from .counts import counted
 
@@ -444,6 +445,10 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
     takes ``work``: the kernel returns at its entry when the flag is set,
     leaving ``(warm, work)`` as given, and with ``carry`` it starts from
     the work rows' ``X``, ``U`` as the proximal centre."""
+    refuse_gradient("fused_stagewise_tick / fused_stagewise_tick_streamed "
+                    "(csrc/stagewise_tick.cu)", "make_stagewise_step(..., "
+                    "backend='xla') (the plain loop)", plan, x0, warm,
+                    plan_lf, work)
     if n_iter < 0 or N < 1:
         raise ValueError(f"n_iter must be >= 0 and N >= 1, got {n_iter}, "
                          f"{N}")

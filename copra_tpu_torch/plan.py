@@ -49,6 +49,7 @@ from .mpc import build_qp
 from .ops.admm_kernel import (admm_box_plain, fused_admm_box,
                                fused_admm_box_lanes, fused_admm_box_shared,
                                fused_admm_general_shared)
+from .ops._derivative import refuse_gradient
 from .qp.admm import _auto_refine, _jacobi_inverse, _polish, _tolerances
 from .qp.native import solve_qp_native
 from .qp.types import DenseQP, QPSolution, SolverOptions, WarmStart
@@ -182,7 +183,15 @@ def make_seed_map(plan: ControlPlan, center=None,
     (the reference's numpy code, unchanged).  ``center``: state(s) to
     expand around (default 0).  ``keep_f64``: keep the map in f64 on the
     plan's device (the accurate step applies it in f64); otherwise it takes
-    the plan's dtype."""
+    the plan's dtype.
+
+    The map is built in numpy, so it has no derivative in the plan's
+    ``Q``, ``c0`` and ``Cmap``: a gradient asked of them raises (a
+    gradient in ``x0`` flows through the map's application)."""
+    refuse_gradient("make_seed_map (the seed map is built on the host in "
+                    "numpy)", "solve_mpc or solve_qp (the condensed solve, "
+                    "differentiable in the problem's data)", plan.Q,
+                    plan.c0, plan.Cmap)
     Q = plan.Q.detach().cpu().numpy().astype(np.float64)
     c0 = plan.c0.detach().cpu().numpy().astype(np.float64)
     Cmap = plan.Cmap.detach().cpu().numpy().astype(np.float64)
@@ -724,6 +733,11 @@ def make_plan_step(plan: ControlPlan,
 
     ``options.polish`` on the general-row path runs the active-set polish
     of :mod:`copra_tpu_torch.qp.admm` on each tick's iterate.
+
+    The kernels have no derivative: on a CUDA device a gradient asked of a
+    tick that launches one raises, naming ``use_fused=False``, whose
+    ticks differentiate in ``x0`` (the seed map is built in numpy, so not
+    in the plan's data).
     """
     box_only = plan.Aeq.shape[-2] == 0 and plan.Aineq.shape[-2] == 0
     accurate_fused = use_fused is not False
@@ -810,8 +824,10 @@ def make_plan_multistep(plan: ControlPlan,
         key = (tuple(x0_seq.shape), x0_seq.dtype)
         chain = chains.get(key)
         if chain is None:
-            chain = chains[key] = CapturedChain(ticks, (x0_seq, wy),
-                                                "make_plan_multistep")
+            chain = chains[key] = CapturedChain(
+                ticks, (x0_seq, wy), "make_plan_multistep",
+                "make_plan_step(..., accurate=True, use_fused=False) tick "
+                "by tick")
         return tree_map(torch.clone, chain(x0_seq, wy))
 
     step_many.chains = chains

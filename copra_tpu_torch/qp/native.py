@@ -71,7 +71,15 @@ def _ptr(arr: np.ndarray):
 def solve_qp_native(qp: DenseQP, options: SolverOptions = SolverOptions(),
                     warm_start: Optional[WarmStart] = None) -> QPSolution:
     """Solve one QP exactly on the host in f64 (``warm_start`` is ignored:
-    the active-set solver always cold-starts).  Returns CPU f64 tensors."""
+    the active-set solver always cold-starts).  Returns CPU f64 tensors.
+
+    The solve runs in C on numpy copies, so it has no derivative: a
+    gradient asked of ``qp`` raises."""
+    from ..ops._derivative import refuse_gradient
+
+    refuse_gradient("solve_qp_native (the native active-set engine, on "
+                    "numpy copies)", "solve_qp, or solve(..., "
+                    "engine='condensed')", qp, warm_start)
     del warm_start
     Q = _f64(qp.Q)
     if Q.ndim != 2:

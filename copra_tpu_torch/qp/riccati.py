@@ -685,11 +685,20 @@ def solve_stagewise(sqp: StagewiseQP,
     statuses and iterates.  A problem outside the kernel's envelope
     raises there; ``parallel_scan=True`` keeps the plain loop on the
     device.  On CPU tensors, and for the fixed count, the plain loop runs.
+
+    The plain loop differentiates (``torch.autograd``, ``torch.func``),
+    as the reference's loop does; the kernel has no derivative.  So when
+    a gradient is asked of ``sqp`` or ``warm_start`` (requires_grad under
+    grad mode, a ``torch.func`` transform or a forward-mode tangent), the
+    early-exit solve runs the plain loop on the device too, and launches
+    no kernel; with no gradient asked it runs the kernel.
     """
+    from ..ops._derivative import asks_gradient
     from ..ops.stagewise_kernel import (_lane_residuals, lqr_solve_fixed,
                                         precompute_lqr_gains)
 
-    if options.early_exit and not parallel_scan and sqp.A.is_cuda:
+    if (options.early_exit and not parallel_scan and sqp.A.is_cuda
+            and not asks_gradient(sqp, warm_start)):
         from ..ops.stagewise_kernel import (check_fused_envelope,
                                             solve_stagewise_fused)
         try:
@@ -1231,7 +1240,10 @@ def make_stagewise_step(sqp: StagewiseQP,
     on CPU tensors), ``"xla"`` the plain batched :func:`solve_stagewise`
     path (the reference's XLA backend; with ``parallel_scan=True`` its LQ
     solves are :func:`lqr_solve_assoc`), ``"auto"`` (default) the kernel
-    for a problem on a CUDA device inside the kernel's envelope.
+    for a problem on a CUDA device inside the kernel's envelope.  The
+    kernel has no derivative: on a CUDA device a gradient asked of a
+    fused tick raises, naming ``backend='xla'``, whose ticks
+    differentiate.
 
     With ``scaling='auto'`` (or an explicit ``(Dx, Du)`` pair) the problem
     is equilibrated once at build; ticks take and return original units,
@@ -1301,7 +1313,9 @@ def _probe_setup(sqp: StagewiseQP, probe_lanes: int, probe_steps: int,
     scalar or a per-coordinate ``[x]`` vector (a caller probing an
     equilibrated problem passes the physical drift mapped into scaled
     space).  Returns ``(sqp_p, nl, x0_p, drift, x0_seq)``; ``x0_seq``
-    tensors on the problem's device in its dtype."""
+    tensors on the problem's device in its dtype.  The probe lanes are
+    detached: a policy only reads the problem's values, so a problem that
+    asks for a gradient gets a server whose plain ticks differentiate."""
     sqp_b = sqp if sqp.A.dim() == 4 else _lead(sqp)
     nb = sqp_b.A.shape[0]
     idx = np.unique(np.linspace(0, nb - 1,
@@ -1309,7 +1323,7 @@ def _probe_setup(sqp: StagewiseQP, probe_lanes: int, probe_steps: int,
     sel = torch.as_tensor(idx, device=sqp_b.A.device)
     sqp_p = StagewiseQP(**{
         f.name: None if getattr(sqp_b, f.name) is None
-        else getattr(sqp_b, f.name).index_select(0, sel)
+        else getattr(sqp_b, f.name).detach().index_select(0, sel)
         for f in dataclasses.fields(StagewiseQP)})
     nl, x = len(idx), sqp_p.xdim
     rng = np.random.default_rng(0)
@@ -1519,6 +1533,10 @@ def make_stagewise_server(sqp: StagewiseQP, *,
     return tick
 
 
+# the eager route of a captured stagewise chain, which differentiates
+_PLAIN_TICKS = "make_stagewise_step(..., backend='xla') tick by tick"
+
+
 class StagewiseMultistep:
     """Callable chain facade built by :func:`make_stagewise_multistep`:
     ``step_many(x0, n_ticks, warm=None, x0_seq=None) -> (states, U0s,
@@ -1621,7 +1639,7 @@ class StagewiseMultistep:
                 fn = lambda x0_, *w: self._chain(n_ticks, x0_, w)
             chain = self._chains[key] = CapturedChain(
                 fn, (xs if exogenous else x0,) + warm,
-                "make_stagewise_multistep")
+                "make_stagewise_multistep", _PLAIN_TICKS)
         return tree_map(torch.clone, chain(xs if exogenous else x0, *warm))
 
     def _check_plant(self, x0: Tensor) -> None:
@@ -1633,7 +1651,8 @@ class StagewiseMultistep:
         U = x0.new_zeros(B.shape[:2] + B.shape[-1:])
         name = getattr(self._plant_fn, "__name__", repr(self._plant_fn))
         CapturedChain(self._plant_fn, (x0, U),
-                      f"make_stagewise_multistep: the plant {name!r}")
+                      f"make_stagewise_multistep: the plant {name!r}",
+                      _PLAIN_TICKS)
 
     def replan(self, sqp_new: StagewiseQP) -> None:
         """Swap the problem data (same shapes and dtypes) behind the chain
