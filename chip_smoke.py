@@ -271,7 +271,28 @@ Phases, one line or more each:
     a fresh ``solve`` 2e-5); the stagewise step's warm ticks on K4
     (1e-4); ``make_stagewise_step(backend="fused")`` against
     ``backend="xla"`` on float32 draws, 3 ticks (5e-5); each draw's
-    (x, u, N, r), its error and the launches.
+    (x, u, N, r), its error and the launches;
+34. the reference's last behaviour suites on the kernel routes (their
+    plain routes are held against the reference by the CPU tests
+    ``tests/test_torch_{stagewise_honesty,model_swap,stagewise_scaling,
+    behavior}.py``): (a) the early-exit route on K4 out of a 3-iteration
+    budget, every lane unsolved at 3 iterations; (b) K4's fixed count on
+    3 lanes, one starved: ``failed_lanes(2)`` and ``inform()`` name it, a
+    solved batch names none; (c) crossed bounds on K4, primal infeasible
+    at fixed count and with early exit; each held against the plain route
+    on the CPU; (d) config 5's captured chain replanned twice at equal
+    shapes (the footstep plan moved 2 mm, then back) with no new capture,
+    the first tick after each swap converged on every lane, a served tick
+    captured as a CUDA graph equal to a fresh facade's after a replan (bit
+    for bit), and a changed shape raising ``DimensionError``; (e) the
+    quadruped at N = 16 in float64 on K5 with early exit: the scaled
+    problem converges within 800 iterations in fewer than the raw one,
+    which does not; (f) the N = 300 canary through ``solve_mpc`` on the
+    card: solved, replay <= 1e-10, bounds held to 1e-6, within 1e-7 of
+    the CPU port; (g) K7 on config 2's per-lane fleet with rows normalised
+    (``row_normalize=True``) at rho 0.01, 0.1, 1 and 10 against its plain
+    version in float64 (2e-4 x max(1, max |plain|)), timed by graph
+    replay.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  A chain's
@@ -874,23 +895,16 @@ def build_config6(tt, device):
                 setup_s=time.perf_counter() - t0)
 
 
-def build_config5(tt, device):
+def config5_fleet(tt, device, shift: float = 0.0):
     """The config-5 fleet: both ZMP axes per robot through the port's
-    ``from_mpc`` (``bench_all.py:_bipedal_workload``/``axis_sqp``), its
-    options and drifting x0 sequence (``bench_all.py:config5``, fused
-    lines)."""
+    ``from_mpc`` (``bench_all.py:_bipedal_workload``/``axis_sqp``), the
+    footstep plan moved by ``shift`` metres on both axes (a footstep
+    replan's data; 0 is config 5's own)."""
     import torch
-    from copra_tpu_torch.qp.riccati import (from_mpc, make_stagewise_step,
-                                            stack_stagewise)
+    from copra_tpu_torch.qp.riccati import from_mpc, stack_stagewise
 
     A, B, d, zmp_row = lipm_system(ZMP_T, 0.8)
-    ref, lo, hi = footstep_plan(4, ZMP_N, ZMP_T)
-    lanes = 2 * ZMP_ROBOTS
-    rng = np.random.default_rng(7)
-    x0_seq = [np.cumsum(rng.normal(scale=0.002, size=(t + 1, lanes, 3)),
-                        axis=0)[-1].astype(np.float32)
-              for t in range(WARMUP_TICKS + TIMED_TICKS)]
-    t0 = time.perf_counter()
+    ref, lo, hi = (a + shift for a in footstep_plan(4, ZMP_N, ZMP_T))
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     Zfull = f32(np.kron(np.eye(ZMP_N + 1), zmp_row))
     system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(np.zeros(3)),
@@ -905,7 +919,27 @@ def build_config5(tt, device):
                        tt.TrajectoryConstraint(E=-Zfull, f=f32(-lo[ax])))
         return from_mpc(system, costs, constraints)
 
-    fleet = stack_stagewise([axis_sqp(0), axis_sqp(1)], repeats=ZMP_ROBOTS)
+    return stack_stagewise([axis_sqp(0), axis_sqp(1)], repeats=ZMP_ROBOTS)
+
+
+def build_config5(tt, device):
+    """The config-5 fleet: both ZMP axes per robot through the port's
+    ``from_mpc`` (``bench_all.py:_bipedal_workload``/``axis_sqp``), its
+    options and drifting x0 sequence (``bench_all.py:config5``, fused
+    lines)."""
+    import torch
+    from copra_tpu_torch.qp.riccati import make_stagewise_step
+
+    A, B, d, zmp_row = lipm_system(ZMP_T, 0.8)
+    ref, lo, hi = footstep_plan(4, ZMP_N, ZMP_T)
+    lanes = 2 * ZMP_ROBOTS
+    rng = np.random.default_rng(7)
+    x0_seq = [np.cumsum(rng.normal(scale=0.002, size=(t + 1, lanes, 3)),
+                        axis=0)[-1].astype(np.float32)
+              for t in range(WARMUP_TICKS + TIMED_TICKS)]
+    t0 = time.perf_counter()
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    fleet = config5_fleet(tt, device)
     opts = tt.SolverOptions(max_iter=300, early_exit=False, polish=False,
                             eps_abs=1e-6, rho=1.0)
     wopts = opts.replace(max_iter=20, topup_iters=80)
@@ -4751,6 +4785,392 @@ def fuzz_phase(tt, sk, dev, reset_counts, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: the reference's last behaviour suites on the kernel routes
+# (tests/test_torch_stagewise_honesty.py, test_torch_model_swap.py,
+# test_torch_stagewise_scaling.py, test_torch_behavior.py hold the plain
+# routes against the reference on the CPU).
+# ---------------------------------------------------------------------------
+
+PARITY_RHOS = (0.01, 0.1, 1.0, 10.0)   # K7 at rows normalised, A.3
+PARITY_SHIFTS = (0.002, 0.0)           # config 5's footstep replans, m
+CANARY_N = 300
+
+
+def _fixtures():
+    """``tests/fixtures.py`` (numpy only): the reference's golden data."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import fixtures
+
+    return fixtures
+
+
+def _on_device(a, device):
+    import torch
+
+    return torch.tensor(np.asarray(a, np.float64), device=device)
+
+
+def _box_terms(tt, fx, device, x0=None, horizon=None):
+    """The SmallSystem (``x0``, ``horizon``: its own unless given) and its
+    target and control costs, float64 on ``device``."""
+    on = lambda a: _on_device(a, device)
+    system = tt.LTISystem.create(
+        on(fx.A), on(fx.B), on(fx.D), on(fx.SMALL_X0 if x0 is None else x0),
+        fx.SMALL_N if horizon is None else horizon)
+    costs = (tt.TargetCost.create(on(fx.M), on(fx.XD), weights=on(fx.WX)),
+             tt.ControlCost.create(on(fx.N_MAT), on(fx.UD),
+                                   weights=on(fx.WU)))
+    return system, costs
+
+
+def _box_lanes(tt, fx, x0s, device):
+    """The SmallSystem box problem (``tests/test_stagewise_honesty.py``'s
+    ``box_system`` with its control bounds) in stagewise form, one lane a
+    row of ``x0s``, float64 on ``device``."""
+    import dataclasses
+
+    from copra_tpu_torch.qp.riccati import from_mpc, stack_stagewise
+
+    system, costs = _box_terms(tt, fx, device)
+    cons = (tt.ControlBoundConstraint.create(_on_device(fx.U_LOWER, device),
+                                             _on_device(fx.U_UPPER, device)),)
+    sqp = stack_stagewise([from_mpc(system, costs, cons)],
+                          repeats=len(x0s))
+    return dataclasses.replace(sqp, x0=_on_device(x0s, device))
+
+
+def _against_plain(what, got, want, tol):
+    """A kernel route's ``(X, U, info)`` against the plain route's on the
+    CPU: equal statuses and iterations, X and U within ``tol`` x max(1,
+    max |plain|).  Returns the relative distance."""
+    import torch
+
+    scale = max(1.0, max(float(w.abs().max()) for w in want[:2]))
+    rel = max(float((g.cpu() - w).abs().max())
+              for g, w in zip(got[:2], want[:2])) / scale
+    same = (torch.equal(got[2].status.cpu(), want[2].status)
+            and torch.equal(got[2].iterations.cpu(), want[2].iterations))
+    if not (same and rel <= tol):
+        fail(f"{what}: the kernel route differs from the plain route "
+             f"(statuses {got[2].status.tolist()} / "
+             f"{want[2].status.tolist()}, iterations "
+             f"{got[2].iterations.tolist()} / {want[2].iterations.tolist()},"
+             f" rel {rel:.3e})")
+    return rel
+
+
+def parity_honesty_case(tt, sk, fx, dev, reset_counts):
+    """(a) early exit out of budget, (b) the worst lanes and (c) crossed
+    bounds, on K4 (``tests/test_stagewise_honesty.py:243``, ``:309``,
+    ``:67``).  Returns K4's launches."""
+    import torch
+
+    from copra_tpu_torch.qp.riccati import from_mpc
+
+    x0s = np.stack([fx.SMALL_X0, [0.0, -50.0], fx.SMALL_X0])
+    sqp = _box_lanes(tt, fx, x0s, dev)
+    cpu = _on(sqp, "cpu")
+    entry = _entry(sk, sqp)
+    total = 0
+    # (a) the early-exit route on K4 with a budget of 3 iterations
+    opts = tt.SolverOptions(max_iter=3, seed="zero", eps_abs=1e-12,
+                            eps_rel=0.0)
+    reset_counts()
+    got = tt.solve_stagewise(sqp, opts)
+    torch.cuda.synchronize()
+    n = entry.launches
+    total += n
+    rel = _against_plain("early exit out of budget", got,
+                         tt.solve_stagewise(cpu, opts), F64_TOL)
+    print(f"parity (a) K4 early exit, 3 lanes, budget 3: statuses "
+          f"{got[2].status.tolist()}, iterations "
+          f"{got[2].iterations.tolist()}, {n} {entry.__name__} launches; "
+          f"rel to the plain loop {rel:.3e}")
+    if n == 0 or bool((got[2].status == tt.STATUS_SOLVED).any()) or \
+            not bool((got[2].iterations == 3).all()):
+        fail("early exit out of budget: a lane claimed success, stopped "
+             "short of the budget, or K4 never launched")
+    # (b) fixed count on K4: lane 1 starts far away and starves
+    lines = []
+    for iters, starved in ((5, True), (800, False)):
+        opts = tt.SolverOptions(max_iter=iters, seed="zero", eps_abs=1e-10,
+                                eps_rel=0.0, early_exit=False)
+        if not starved:
+            opts = tt.SolverOptions(max_iter=iters, early_exit=False)
+        reset_counts()
+        got = sk.solve_stagewise_fused(sqp, opts)
+        torch.cuda.synchronize()
+        n = entry.launches
+        total += n
+        _against_plain(f"the fixed-count K4 solve ({iters} iterations)",
+                       got, sk.solve_stagewise_fused(cpu, opts), F64_TOL)
+        info = got[2]
+        lanes, msg = info.failed_lanes(2), info.inform()
+        lines.append(f"{iters} iterations: statuses "
+                     f"{info.status.tolist()}, failed_lanes(2) {lanes}, "
+                     f"{n} launches")
+        if n == 0:
+            fail("the worst-lanes case never launched K4")
+        if starved and not (1 in lanes and "worst lanes" in msg
+                            and f"lane {lanes[0]}" in msg):
+            fail(f"the starved lane is not named: {lanes}, {msg!r}")
+        if not starved and (lanes or "worst lanes" in msg):
+            fail(f"a solved batch names failed lanes: {lanes}, {msg!r}")
+    print("parity (b) K4 worst lanes: " + "; ".join(lines))
+    # (c) crossed control bounds on float32 data, fixed count and early exit
+    system, costs = _box_terms(tt, fx, dev)
+    crossed = from_mpc(system, costs, (tt.ControlBoundConstraint.create(
+        _on_device([5.0], dev), _on_device([-5.0], dev)),))
+    crossed = _on(crossed, dev, torch.float32)
+    lines = []
+    for early_exit in (False, True):
+        opts = tt.SolverOptions(max_iter=20, early_exit=early_exit)
+        reset_counts()
+        got = (tt.solve_stagewise(crossed, opts) if early_exit
+               else sk.solve_stagewise_fused(crossed, opts))
+        torch.cuda.synchronize()
+        n = entry.launches
+        total += n
+        status = int(got[2].status)
+        lines.append(f"early_exit={early_exit}: status {status}, {n} "
+                     f"launches")
+        if n == 0 or status != tt.STATUS_PRIMAL_INFEASIBLE:
+            fail(f"crossed bounds on K4 (early_exit={early_exit}): status "
+                 f"{status}, {n} launches")
+    print("parity (c) K4 crossed bounds: " + "; ".join(lines))
+    return total
+
+
+def parity_replan_case(tt, sk, cfg5, reset_counts):
+    """(d) ``replan`` under a CUDA graph (``tests/test_model_swap.py:114``,
+    ``:140``): config 5's captured chain replans twice at equal shapes
+    (the footstep plan moved, then back) with no new capture, the first
+    tick after each swap converged on every lane; one served tick captured
+    as a graph reads a replan's data (the facade refills its buffers)
+    and equals a fresh facade's tick bit for bit; a changed shape raises
+    ``DimensionError``.  Returns K4's launches."""
+    import torch
+
+    from copra_tpu_torch._graph import CapturedChain
+    from copra_tpu_torch.qp.riccati import make_stagewise_step
+
+    dev = cfg5["fleet"].A.device
+    seq = _stack(cfg5["x0_seq"])
+    T = seq.shape[0]
+    kw = dict(cold_options=cfg5["cold_opts"], backend="fused")
+    reset_counts()
+    many = tt.make_stagewise_multistep(cfg5["fleet"], cfg5["opts"], **kw)
+    entry = _entry(sk, cfg5["fleet"])
+    _, _, _, _, warm = many(None, T, x0_seq=seq)
+    chains = dict(many.chains)
+    firsts = []
+    for shift in PARITY_SHIFTS:
+        many.replan(config5_fleet(tt, dev, shift))
+        _, _, statuses, _, warm = many(None, T, warm=warm, x0_seq=seq)
+        firsts.append(float((statuses[0] == 0).double().mean()))
+    recaptured = many.chains != chains or len(chains) != 1
+    # one tick as a graph, then a replan behind it
+    tick = make_stagewise_step(cfg5["fleet"], cfg5["opts"], **kw)
+    _, _, _, w0 = tick(seq[0])
+    graph = CapturedChain(lambda x, *w: tick(x, w), (seq[1],) + tuple(w0),
+                          "a config 5 tick", "backend='xla'")
+    moved = config5_fleet(tt, dev, PARITY_SHIFTS[0])
+    tick.replan(moved)
+    got = graph(seq[1], *w0)
+    torch.cuda.synchronize()
+    n = entry.launches
+    fresh = make_stagewise_step(moved, cfg5["opts"], **kw)
+    want = fresh(seq[1], tuple(w0))
+    same = all(torch.equal(g, w) for g, w in
+               [(got[0], want[0]), (got[1], want[1]),
+                (got[2].status, want[2].status)]
+               + list(zip(got[3], want[3])))
+    raised = []
+    half = _on(cfg5["fleet"], dev, lanes=slice(0, seq.shape[1] // 2))
+    for what, call in (("chain", lambda: many.replan(half)),
+                       ("tick", lambda: tick.replan(half))):
+        try:
+            call()
+        except tt.DimensionError:
+            raised.append(what)
+    print(f"parity (d) replan under a CUDA graph, config 5 ({T} ticks a "
+          f"chain, {seq.shape[1]} lanes): footstep shifts "
+          f"{list(PARITY_SHIFTS)} m, first tick after each swap converged "
+          f"on {firsts} of the lanes, chains captured {len(chains)} -> "
+          f"{len(many.chains)} (no new capture: {not recaptured}); a "
+          f"captured tick after a replan equals a fresh facade bit for "
+          f"bit: {same}; a changed shape raises DimensionError on "
+          f"{raised}; {n} {entry.__name__} launches")
+    if n == 0:
+        fail("the replan case never launched K4")
+    if recaptured or min(firsts) < 1.0 or not same or len(raised) != 2:
+        fail("replan under a CUDA graph: see the line above")
+    return n
+
+
+def parity_scaling_case(tt, sk, dev, reset_counts):
+    """(e) K5 with scaling (``tests/test_stagewise_scaling.py:66``): the
+    quadruped at N = 16 in float64, 800 iterations, early exit, raw and
+    equilibrated, each against the plain loop on the CPU.  Returns K5's
+    launches."""
+    import torch
+
+    from copra_tpu_torch.convert import stagewise_from_numpy
+    from copra_tpu_torch.qp.riccati import scale_stagewise, stagewise_scales
+
+    sqp = stagewise_from_numpy({k: np.asarray(v, np.float64) for k, v in
+                                srb_quadruped(N=16).items()}, device=dev)
+    scaled = scale_stagewise(sqp, *stagewise_scales(sqp))
+    opts = tt.SolverOptions(max_iter=800, early_exit=True, eps_abs=1e-8,
+                            eps_rel=0.0)
+    entry = _entry(sk, sqp)
+    out, total = {}, 0
+    for name, problem in (("raw", sqp), ("scaled", scaled)):
+        reset_counts()
+        got = tt.solve_stagewise(problem, opts)
+        torch.cuda.synchronize()
+        n = entry.launches
+        total += n
+        rel = _against_plain(f"the quadruped ({name})", got,
+                             tt.solve_stagewise(_on(problem, "cpu"), opts),
+                             F64_TOL)
+        out[name] = (int(got[2].status), int(got[2].iterations), n, rel)
+        if n == 0:
+            fail(f"the quadruped ({name}) never launched {entry.__name__}")
+    print(f"parity (e) {entry.__name__} with scaling, the quadruped at "
+          f"N = 16, float64, 800 iterations at most: (status, iterations, "
+          f"launches, rel to the plain loop) raw {out['raw']}, scaled "
+          f"{out['scaled']}")
+    if not (out["scaled"][0] == 0 and out["raw"][0] != 0
+            and out["scaled"][1] < out["raw"][1]):
+        fail("scaling does not fix the quadruped on the card")
+    return total
+
+
+def parity_canary_case(tt, fx, dev):
+    """(f) the N = 300 canary (``tests/test_behavior.py:133``) through
+    ``solve_mpc`` on the card: solved, replay <= 1e-10, the bounds held to
+    1e-6, the terminal velocity on target, and the CPU port's controls
+    within 1e-7."""
+    import torch
+
+    x0 = np.array([0.0, -5.0])
+    opts = tt.SolverOptions(max_iter=8000, eps_abs=1e-7, eps_rel=0.0)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        on = lambda a: _on_device(a, device)
+        system, costs = _box_terms(tt, fx, device, x0, CANARY_N)
+        cons = [tt.TrajectoryBoundConstraint.create(on(fx.X_LOWER),
+                                                    on(fx.X_UPPER)),
+                tt.ControlBoundConstraint.create(on(fx.U_LOWER),
+                                                 on(fx.U_UPPER))]
+        t0 = time.perf_counter()
+        res = tt.solve_mpc(system, costs, cons, opts)
+        replay = float(tt.replay_dynamics(system, res.trajectory,
+                                          res.control))
+        out.append((res, replay, (time.perf_counter() - t0) * 1e3))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    (res, replay, ms), (cres, _, cms) = out
+    X, U = res.trajectory.cpu().numpy(), res.control.cpu().numpy()
+    vel = X[1::2]
+    diff = float(np.abs(U - cres.control.numpy()).max())
+    status = int(res.solution.status)
+    print(f"parity (f) the N = {CANARY_N} canary through solve_mpc on "
+          f"{res.control.device}: status {status}, "
+          f"{int(res.solution.iterations)} iterations, {ms:.1f} ms (CPU "
+          f"{cms:.1f} ms); replay {replay:.3e}, max velocity "
+          f"{vel.max():.6f} (bound {fx.X_UPPER[1]}), max control "
+          f"{U.max():.6f} (bound {fx.U_UPPER[0]}), terminal velocity "
+          f"{vel[-1]:.6f} (target {fx.XD[1]}); the CPU port's controls "
+          f"within {diff:.3e}")
+    if not (res.control.is_cuda and status == tt.STATUS_SOLVED
+            and replay <= 1e-10 and vel.max() <= fx.X_UPPER[1] + 1e-6
+            and U.max() <= fx.U_UPPER[0] + 1e-6
+            and abs(fx.XD[1] - vel[-1]) <= 1e-3 and X[0::2].max() <= 1e-6
+            and diff <= 1e-7):
+        fail("the N = 300 canary misses the reference's contract")
+
+
+def k7_served_rho(tt, ak, dev, rho: float, batch: int = 0):
+    """K7's inputs at a served rho: config 2 on per-lane dynamics (phase
+    15's fleet) with rows normalised as ``solve_qp`` normalises them
+    (``stack_constraints`` with ``row_normalize=True``), K's inverse from
+    float64, and distinct non-zero warm starts.  Returns ``(kernel
+    output, plain version in float64 on the same inputs, tolerance 2e-4 x
+    max(1, max |plain|), the kernel call)``."""
+    import torch
+
+    from copra_tpu_torch.qp.admm import stack_constraints
+
+    f32 = torch.float32
+    system, costs, constraints, x0_seq = build_config2_ltv(
+        tt, dev, np.float32, batch)
+    opts = tt.SolverOptions(
+        max_iter=C2_ITERS, early_exit=False, scaling=0, row_normalize=True,
+        kkt_solve="inverse", kkt_refine=0, polish=False,
+        infeasibility_detection=False, seed="zero", rho=rho)
+    qp = tt.build_qp(tt.condense(system), torch.tensor(
+        x0_seq[0].astype(np.float32), device=dev), costs, constraints)
+    C, l, u, rho_r = (t.contiguous() for t in stack_constraints(qp, opts))
+    B, m, n = C.shape
+    K = (qp.Q.double() + opts.sigma * torch.eye(n, dtype=torch.float64,
+                                                device=dev)
+         + (C.mT.double() * rho_r.double()[:, None, :]) @ C.double())
+    Kinv = torch.linalg.inv(K).to(f32).contiguous()
+    rng = np.random.default_rng(34)
+    vec = lambda k: torch.tensor(0.1 * rng.normal(size=(B, k)), dtype=f32,
+                                 device=dev)
+    x0v, y0v = vec(n), vec(m)
+    z0v = torch.clamp(vec(m), l, u)
+    args = (Kinv, C, qp.c.contiguous(), l, u, rho_r, x0v, y0v, z0v)
+    sc = dict(n_iter=opts.max_iter, sigma=opts.sigma, alpha=opts.alpha)
+    call = lambda: ak.fused_admm_general(*args, **sc)
+    got = call()
+    want = ak.admm_general_plain(*(a.double() for a in args), **sc)
+    torch.cuda.synchronize()
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    return got, want, KERNEL_TOL * scale, call
+
+
+def parity_k7_case(tt, ak, dev, card):
+    """(g) K7 at the four rhos against its plain version in float64 on the
+    same inputs.  Returns the largest distance."""
+    worst, lines = 0.0, []
+    for rho in PARITY_RHOS:
+        got, want, tol, call = k7_served_rho(tt, ak, dev, rho)
+        err = _max_diff(got, want)
+        worst = max(worst, err)
+        lines.append(f"rho {rho:g}: {err:.3e} (tol {tol:.3e}), "
+                     f"{_graph_ms(call, 10):.4f} ms by graph replay")
+        if not err <= tol:
+            fail(f"fused_admm_general at rho {rho:g} (rows normalised) "
+                 f"misses its float64 plain version: {err:.3e} > {tol:.3e}")
+    print(f"parity (g) fused_admm_general on config 2's per-lane fleet "
+          f"({FLEET} lanes, {C2_ITERS} iterations, rows normalised) "
+          f"against its plain version in float64 ({card}): "
+          + "; ".join(lines))
+    return worst
+
+
+def parity_phase(tt, ak, sk, dev, cfg5, reset_counts, card):
+    """Phase 34.  Returns the launches of each entry point on its served
+    route (K7's launches against its plain version are not counted) and
+    K7's largest distance."""
+    t0 = time.perf_counter()
+    fx = _fixtures()
+    k4 = parity_honesty_case(tt, sk, fx, dev, reset_counts)
+    k4 += parity_replan_case(tt, sk, cfg5, reset_counts)
+    k5 = parity_scaling_case(tt, sk, dev, reset_counts)
+    parity_canary_case(tt, fx, dev)
+    k7_err = parity_k7_case(tt, ak, dev, card)
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s")
+    return {"fused_stagewise_tick": k4,
+            "fused_stagewise_tick_streamed": k5}, k7_err
+
+
 def main() -> int:
     import torch
 
@@ -4968,6 +5388,13 @@ def main() -> int:
     for entry, n in fuzz_phase(tt, sk, dev, reset_counts, card).items():
         kernels[entry]["launches"] += n
     print(f"phase 33: {time.perf_counter() - t_phase:.1f} s")
+    # phase 34: the reference's last behaviour suites on the kernel routes
+    launches, k7_err = parity_phase(tt, ak, sk, dev, configs[1],
+                                    reset_counts, card)
+    for entry, n in launches.items():
+        kernels[entry]["launches"] += n
+    k7 = kernels["fused_admm_general"]
+    k7["max_abs_err"] = max(k7["max_abs_err"], k7_err)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_wide)
     order = ("fused_admm_box_lanes", "fused_admm_box",

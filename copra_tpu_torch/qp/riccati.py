@@ -276,10 +276,14 @@ def from_mpc(system: System,
 
     def check_x0_rows(E0, f0, is_ineq):
         """Build-time feasibility of the dropped ``x_0`` trajectory rows
-        (x_0 is data; reference constraint tolerance 1e-6)."""
-        E0c = E0.detach().cpu().numpy()
-        f0c = f0.detach().cpu().numpy()
-        x0c = system.x0.detach().cpu().numpy()
+        (x_0 is data; reference constraint tolerance 1e-6).  Skipped
+        inside a ``torch.func`` transform, whose tensors have no values to
+        read, as the reference skips it under a tracer."""
+        try:
+            E0c, f0c, x0c = (t.detach().cpu().numpy()
+                             for t in (E0, f0, system.x0))
+        except RuntimeError:
+            return
         v = np.einsum("rx,...x->...r", E0c, x0c)
         fin = np.isfinite(f0c)
         if not fin.any():
@@ -1150,15 +1154,34 @@ class StagewiseTick:
         return self._backend
 
     def _set_problem(self, sqp_scaled: StagewiseQP) -> None:
-        self._sqp = sqp_scaled
+        """Hold the problem and, on the fused backend, one plan per
+        distinct plan key, in tensors of the facade's own.  A replan
+        refills them in place, so a graph captured around a tick keeps
+        reading them; where a gradient is asked it takes new tensors, so
+        that the derivative reaches the new data."""
+        from .._graph import copy_into, tree_map
+        from ..ops._derivative import asks_gradient
+
+        held = getattr(self, "_sqp", None)
+        refill = held is not None and not asks_gradient(held, sqp_scaled)
+        if not refill:
+            sqp_scaled = tree_map(
+                lambda t: t.clone(memory_format=torch.contiguous_format),
+                sqp_scaled)
+        plans = {}
         if self._backend == "fused":
             from ..ops.stagewise_kernel import build_fused_plan
-            self._plans = {}
             for opts in (self._options, self._cold_options,
                          self._swap_options):
                 key = self._plan_key(opts)
-                if key not in self._plans:
-                    self._plans[key] = build_fused_plan(sqp_scaled, opts)
+                if key not in plans:
+                    plans[key] = build_fused_plan(sqp_scaled, opts)
+        if refill:
+            keys = list(plans)
+            copy_into([self._sqp] + [self._plans[k] for k in keys],
+                      [sqp_scaled] + [plans[k] for k in keys])
+        else:
+            self._sqp, self._plans = sqp_scaled, plans
 
     @staticmethod
     def _plan_key(opts: SolverOptions):
@@ -1197,11 +1220,13 @@ class StagewiseTick:
                swap_budget: bool = True) -> None:
         """Swap the problem data (same shapes and dtypes) behind the tick.
 
-        Rebuilds only the data-dependent plan tensors; the measured scale
-        and every option stay.  The next call with a carried ``warm`` runs
-        the ``swap_options`` budget once (``swap_budget=False`` disables
-        it).  Raises :class:`~copra_tpu_torch.errors.DimensionError` when
-        the shapes or dtypes differ: that is a new facade, not a replan.
+        Rebuilds only the data-dependent plan tensors, into the facade's
+        own (the same buffers; new ones where a gradient is asked); the
+        measured scale and every option stay.  The next call with a
+        carried ``warm`` runs the ``swap_options`` budget once
+        (``swap_budget=False`` disables it).  Raises
+        :class:`~copra_tpu_torch.errors.DimensionError` when the shapes or
+        dtypes differ: that is a new facade, not a replan.
         """
         if not self._batched and sqp_new.A.dim() == 3:
             sqp_new = _lead(sqp_new)

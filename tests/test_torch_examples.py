@@ -106,7 +106,10 @@ def test_fleet_serving_matches_reference_at_a_fixed_rho(monkeypatch):
     chain recorded): the states at the serving contract, the statuses
     equal on all but at most 2 of the 96 lane-ticks (measured 1: the cold
     tick of lane 4, whose f32 primal residual sits on the tolerance in
-    rounding steps of 3.8e-6)."""
+    rounding steps of 3.8e-6).  Rho is fixed because the example's
+    float32 probes pick different candidates on the two sides by rounding
+    alone: ``tests/test_torch_policy_parity.py`` holds the same probe in
+    float64, where both sides pick one rho."""
     import fleet_serving as jax_fleet
 
     rho, ticks, chains = 1.0, 5, []

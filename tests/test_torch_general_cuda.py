@@ -353,3 +353,22 @@ def test_general_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     Lb = ck.chol_batched(big)
     assert ck.chol_batched.launches == before
     assert float((Lb - torch.linalg.cholesky(big)).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rho", [0.01, 0.1, 1.0, 10.0])
+def test_general_kernel_at_a_served_rho_with_rows_normalised(cuda, rho):
+    """The kernel's float32 sums at the rhos ``auto_rho`` chooses among, on
+    config 2's per-lane fleet with rows normalised as ``solve_qp``
+    normalises them (``chip_smoke.k7_served_rho``, 512 lanes, 400
+    iterations), against the plain version run in float64 on the same
+    inputs: 2e-4 x max(1, max |plain|)."""
+    import chip_smoke
+    import copra_tpu_torch as tt
+
+    got, want, tol, _ = chip_smoke.k7_served_rho(
+        tt, ak, torch.device("cuda"), rho, batch=512)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+    assert max(float((g.double() - w).abs().max())
+               for g, w in zip(got, want)) <= tol

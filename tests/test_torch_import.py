@@ -2,7 +2,9 @@
 reference package (checked in a fresh interpreter, since this test process
 has JAX loaded already)."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -65,6 +67,36 @@ def test_port_examples_load_no_jax_and_no_reference():
     closed-loop, checkpoint and profiling modules they reach import
     neither JAX nor ``copra_tpu``."""
     proc = _run_fresh(_EXAMPLES)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_REFERENCE_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|copra_tpu)(?![A-Za-z0-9_])")
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    """``chip_smoke.py`` runs on the card's host, which has no JAX: its
+    source has no ``import jax``, ``from jax``, ``import copra_tpu`` or
+    ``from copra_tpu`` (``copra_tpu_torch`` is the port), at any depth,
+    and importing it in a fresh interpreter loads neither."""
+    path = os.path.join(REPO, "chip_smoke.py")
+    with open(path) as f:
+        source = f.read()
+    bad = [f"{n}: {line.strip()}"
+           for n, line in enumerate(source.splitlines(), 1)
+           if _REFERENCE_IMPORT.match(line)]
+    for node in ast.walk(ast.parse(source, path)):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        bad += [f"{node.lineno}: {name}" for name in names
+                if name.split(".")[0] in ("jax", "jaxlib", "copra_tpu")]
+    assert not bad, bad
+    proc = _run_fresh(
+        "import sys\nimport chip_smoke\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'copra_tpu'))\n"
+        "print(bad)\nsys.exit(1 if bad else 0)\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -1,6 +1,7 @@
 """The stagewise tick kernel of ``copra_tpu_torch`` against its plain PyTorch
 version, on the card.  Skips without a CUDA device.  Imports no JAX, so on
-a GPU host without JAX it runs with ``--noconftest``:
+a GPU host without JAX it runs with ``--noconftest`` (from the repository's
+root: the parity cases borrow ``chip_smoke.py``'s phase-34 checks):
 
     python -m pytest tests/test_torch_stagewise_cuda.py -m cuda \
         --noconftest -o addopts="" -p no:cacheprovider
@@ -168,3 +169,67 @@ def test_cuda_fused_step_serves_box_only_shape_like_xla(cuda):
             assert float((g - w).abs().max()) <= 1e-9
         warm = [o[3] for o in outs]
     assert sk.fused_stagewise_tick.launches > before
+
+
+def _reset():
+    from copra_tpu_torch.ops.counts import reset
+    reset()
+
+
+@pytest.mark.cuda
+def test_cuda_parity_honesty_on_the_kernel(cuda):
+    """The reference's stagewise-honesty cases on K4
+    (``chip_smoke.parity_honesty_case``): early exit out of a 3-iteration
+    budget on every lane, the starved lane named by ``failed_lanes`` and
+    ``inform``, crossed bounds primal infeasible; each against the plain
+    route on the CPU."""
+    import chip_smoke
+    import copra_tpu_torch as tt
+
+    assert chip_smoke.parity_honesty_case(
+        tt, sk, chip_smoke._fixtures(), torch.device("cuda"), _reset) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_parity_scaling_on_the_kernel(cuda):
+    """The quadruped at N = 16 in float64 on K5 with early exit: the
+    equilibrated problem converges in fewer iterations than the raw one,
+    which does not (``chip_smoke.parity_scaling_case``)."""
+    import chip_smoke
+    import copra_tpu_torch as tt
+
+    assert chip_smoke.parity_scaling_case(tt, sk, torch.device("cuda"),
+                                          _reset) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_replanned_tick_in_a_cuda_graph(cuda):
+    """A warm kernel tick captured as a CUDA graph reads the data of a
+    later same-shape ``replan`` (the facade refills its tensors in place)
+    and equals a fresh facade's tick bit for bit; a changed shape
+    raises."""
+    from copra_tpu_torch._graph import CapturedChain
+    from copra_tpu_torch.errors import DimensionError
+
+    f = _fields(12, 3, 2, 2, 6, seed=90)
+    sqp = StagewiseQP(**{k: torch.tensor(v, device="cuda")
+                         for k, v in f.items()})
+    moved = StagewiseQP(**{k: torch.tensor(
+        v + 0.05 if k == "qx" else v, device="cuda") for k, v in f.items()})
+    opts = SolverOptions(max_iter=15, early_exit=False)
+    tick = make_stagewise_step(sqp, opts, backend="fused")
+    _, _, _, warm = tick(sqp.x0)
+    graph = CapturedChain(lambda x, *w: tick(x, w), (sqp.x0,) + tuple(warm),
+                          "a tick", "backend='xla'")
+    before = graph(sqp.x0, *warm)[1].clone()
+    tick.replan(moved, swap_budget=False)
+    got = graph(sqp.x0, *warm)
+    want = make_stagewise_step(moved, opts, backend="fused")(sqp.x0, warm)
+    assert float((got[1] - before).abs().max()) > 0.0
+    for g, w in [(got[0], want[0]), (got[1], want[1]),
+                 (got[2].status, want[2].status)] + list(zip(got[3],
+                                                             want[3])):
+        assert torch.equal(g, w)
+    with pytest.raises(DimensionError):
+        tick.replan(StagewiseQP(**{k: torch.tensor(v[:3], device="cuda")
+                                   for k, v in f.items()}))
