@@ -292,7 +292,17 @@ Phases, one line or more each:
     the CPU port; (g) K7 on config 2's per-lane fleet with rows normalised
     (``row_normalize=True``) at rho 0.01, 0.1, 1 and 10 against its plain
     version in float64 (2e-4 x max(1, max |plain|)), timed by graph
-    replay.
+    replay;
+35. the benchmark entry points as child processes: ``bench_torch.py``
+    (config 4's accurate ticks on K1, its chained point, the roofline point
+    on K3 and the f32 fast point on K2 from its own child) and
+    ``bench_all_torch.py`` (configs 1, 2, 3, 5, 6 and 8, 3, 3, 2, 12, 4 and
+    4 lines, artifact under ``smoke_out/``): every line's gate held to its
+    contract (1e-5 absolute on the condensed lines, the chained and the
+    roofline points; 1e-4 relative on configs 5 and 6 and on config 3's
+    f32 direct LQR tick) and the kernel its route launches required (no
+    launch on a route with no kernel) by each line's own launch counts;
+    each script's seconds.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  A chain's
@@ -393,9 +403,18 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def build_fleet(batch: int, horizon: int):
-    """``bench.py``'s config-4 fleet (``_build_workload`` and its drift):
-    returns the f32 system arrays, x0s and the tick states x0_seq."""
+def _sync(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU, where the benchmark scripts' tests build these fleets)."""
+    from copra_tpu_torch.profiling import synchronize
+
+    synchronize(device)
+
+
+def build_fleet(batch: int, horizon: int, ticks: int = TICKS):
+    """``bench.py``'s config-4 fleet (``_build_workload`` and its drift over
+    ``ticks`` timed ticks): returns the f32 system arrays, x0s and the
+    ``ticks + 2`` tick states x0_seq."""
     T, mass = 0.005, 5.0
     A = np.array([[1.0, T], [0.0, 1.0]])
     B = np.array([[0.5 * T * T / mass], [T / mass]])
@@ -407,9 +426,9 @@ def build_fleet(batch: int, horizon: int):
     ds = np.repeat(np.repeat(d[None], horizon, 0)[None], batch, 0)
     x0s = np.array([0.0, -1.5])[None] + rng.normal(
         scale=[0.02, 0.1], size=(batch, 2))
-    drift = np.zeros((TICKS + 2, batch, 2))
+    drift = np.zeros((ticks + 2, batch, 2))
     drift[:, :, 1] = np.cumsum(
-        rng.normal(scale=0.02, size=(TICKS + 2, batch)), axis=0)
+        rng.normal(scale=0.02, size=(ticks + 2, batch)), axis=0)
     x0_seq = (x0s[None] + drift).astype(np.float32)
     arrays = [a.astype(np.float32) for a in (As, Bs, ds, x0s)]
     return arrays, x0s, x0_seq
@@ -822,10 +841,12 @@ def stagewise_exact(tt, f):
 
 
 def zmp_exact(tt, A, B, d, zmp_row, ref_ax, lo_ax, hi_ax, x0,
-              zmp_w=1.0, jerk_w=1e-6, ridge=1e-6):
+              zmp_w=1.0, jerk_w=1e-6, ridge=1e-6, return_maps=False):
     """Exact f64 controls ``U [N]`` of one ZMP axis: condensed in f64, ZMP
     rows as inequality pairs, native active-set solve
-    (``bench_all.py:_zmp_exact``)."""
+    (``bench_all.py:_zmp_exact``); with ``return_maps`` also the ZMP's
+    maps ``(Zphi, Zpsi, Zxi)``, the ZMP at stage k being ``Zphi[k] x0 +
+    Zpsi[k] U + Zxi[k]``."""
     N = len(ref_ax) - 1
     A = np.asarray(A, np.float64)
     B = np.asarray(B, np.float64)[:, 0]
@@ -843,7 +864,8 @@ def zmp_exact(tt, A, B, d, zmp_row, ref_ax, lo_ax, hi_ax, x0,
     z_row = np.asarray(zmp_row, np.float64).ravel()
     Zphi = np.einsum("x,kxy->ky", z_row, Phi)
     Zpsi = np.einsum("x,kxu->ku", z_row, Psi)
-    zoff = Zphi @ np.asarray(x0, np.float64) + xi @ z_row
+    Zxi = xi @ z_row
+    zoff = Zphi @ np.asarray(x0, np.float64) + Zxi
     Q = zmp_w * (Zpsi.T @ Zpsi) + (jerk_w + ridge) * np.eye(N)
     c = zmp_w * (Zpsi.T @ (zoff - np.asarray(ref_ax, np.float64)))
     qp = tt.DenseQP(
@@ -852,50 +874,59 @@ def zmp_exact(tt, A, B, d, zmp_row, ref_ax, lo_ax, hi_ax, x0,
         bineq=np.concatenate([np.asarray(hi_ax, np.float64) - zoff,
                               zoff - np.asarray(lo_ax, np.float64)]),
         lb=np.full(N, -np.inf), ub=np.full(N, np.inf))
-    return tt.solve_qp_native(qp).x.numpy()
+    U = tt.solve_qp_native(qp).x.numpy()
+    return (U, (Zphi, Zpsi, Zxi)) if return_maps else U
 
 
-def build_config6(tt, device):
-    """The config-6 fleet, its scales, options and drifting x0 sequence
-    (``bench_all.py:config6`` with rho and the warm budget passed as the
-    reference's measured policies chose them)."""
+def build_config6(tt, device, robots: int = QUAD_ROBOTS,
+                  horizon: int = QUAD_N, rho: float = 0.1,
+                  warm_iters: int = 50, cold_iters: int = 300,
+                  backend: str = "fused",
+                  n_states: int = WARMUP_TICKS + TIMED_TICKS):
+    """The config-6 fleet, its scales, options and ``n_states`` drifting x0
+    states (``bench_all.py:config6``'s ``fleet(robots, rng)`` and drift;
+    by default rho and the warm budget as the reference's measured
+    policies chose them), served through ``make_stagewise_step(backend=
+    backend)``."""
     import torch
     from copra_tpu_torch.qp.riccati import (StagewiseQP, make_stagewise_step,
                                             stagewise_scales)
 
-    one = srb_quadruped()
+    one = srb_quadruped(horizon)
     rng = np.random.default_rng(11)
     pert = rng.normal(scale=np.repeat([0.03, 0.01, 0.03, 0.05], 3),
-                      size=(QUAD_ROBOTS, 12))
+                      size=(robots, 12))
     x0s = (one["x0"].astype(np.float64)[None] + pert).astype(np.float32)
+    # the draws of a longer sequence start with those of a shorter one
     drift = np.cumsum(rng.normal(
-        scale=0.002, size=(WARMUP_TICKS + TIMED_TICKS + 10, QUAD_ROBOTS,
-                           12)), axis=0)
+        scale=0.002, size=(max(n_states, WARMUP_TICKS + TIMED_TICKS + 10),
+                           robots, 12)), axis=0)
     x0_seq = [(x0s.astype(np.float64) + drift[t]).astype(np.float32)
-              for t in range(WARMUP_TICKS + TIMED_TICKS)]
+              for t in range(n_states)]
     t0 = time.perf_counter()
     ten = lambda a: torch.tensor(a, device=device)
     sq1 = StagewiseQP(**{k: ten(v) for k, v in one.items()})
     scales = stagewise_scales(sq1)
-    fleet = StagewiseQP(**{k: ten(np.repeat(v[None], QUAD_ROBOTS, 0))
+    fleet = StagewiseQP(**{k: ten(np.repeat(v[None], robots, 0))
                            for k, v in one.items() if k != "x0"},
                         x0=ten(x0s))
-    opts = tt.SolverOptions(max_iter=300, early_exit=False, polish=False,
-                            eps_abs=1e-4, rho=0.1)
-    wopts = opts.replace(max_iter=50, topup_iters=200)
+    opts = tt.SolverOptions(max_iter=cold_iters, early_exit=False,
+                            polish=False, eps_abs=1e-4, rho=rho)
+    wopts = opts.replace(max_iter=warm_iters, topup_iters=4 * warm_iters)
     tick = make_stagewise_step(fleet, wopts, cold_options=opts,
-                               backend="fused", scaling=scales)
-    torch.cuda.synchronize()
+                               backend=backend, scaling=scales)
+    _sync(device)
     oracle = lambda lane, x0: stagewise_exact(
         tt, dict(one, x0=x0.astype(np.float64)))
     return dict(name="config 6", tick=tick, opts=wopts, scale=scales,
                 fleet=fleet, cold_opts=opts,
                 x0_seq=[ten(a) for a in x0_seq], x0_np=x0_seq,
-                lanes=(0, QUAD_ROBOTS - 1), oracle=oracle,
+                lanes=(0, robots - 1), oracle=oracle,
                 setup_s=time.perf_counter() - t0)
 
 
-def config5_fleet(tt, device, shift: float = 0.0):
+def config5_fleet(tt, device, shift: float = 0.0, horizon: int = ZMP_N,
+                  robots: int = ZMP_ROBOTS):
     """The config-5 fleet: both ZMP axes per robot through the port's
     ``from_mpc`` (``bench_all.py:_bipedal_workload``/``axis_sqp``), the
     footstep plan moved by ``shift`` metres on both axes (a footstep
@@ -904,52 +935,64 @@ def config5_fleet(tt, device, shift: float = 0.0):
     from copra_tpu_torch.qp.riccati import from_mpc, stack_stagewise
 
     A, B, d, zmp_row = lipm_system(ZMP_T, 0.8)
-    ref, lo, hi = (a + shift for a in footstep_plan(4, ZMP_N, ZMP_T))
+    ref, lo, hi = (a + shift for a in footstep_plan(4, horizon, ZMP_T))
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
-    Zfull = f32(np.kron(np.eye(ZMP_N + 1), zmp_row))
+    Zfull = f32(np.kron(np.eye(horizon + 1), zmp_row))
     system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(np.zeros(3)),
-                                 ZMP_N)
+                                 horizon)
 
     def axis_sqp(ax):
         costs = (tt.TrajectoryCost(M=Zfull, p=f32(ref[ax]),
-                                   weights=f32(np.ones(ZMP_N + 1))),
-                 tt.SimpleControlCost(p=f32(np.zeros(ZMP_N)),
-                                      weights=f32(np.full(ZMP_N, 1e-6))))
+                                   weights=f32(np.ones(horizon + 1))),
+                 tt.SimpleControlCost(p=f32(np.zeros(horizon)),
+                                      weights=f32(np.full(horizon, 1e-6))))
         constraints = (tt.TrajectoryConstraint(E=Zfull, f=f32(hi[ax])),
                        tt.TrajectoryConstraint(E=-Zfull, f=f32(-lo[ax])))
         return from_mpc(system, costs, constraints)
 
-    return stack_stagewise([axis_sqp(0), axis_sqp(1)], repeats=ZMP_ROBOTS)
+    return stack_stagewise([axis_sqp(0), axis_sqp(1)], repeats=robots)
 
 
-def build_config5(tt, device):
+def config5_oracle(tt, horizon: int = ZMP_N, shift: float = 0.0):
+    """``oracle(lane, x0, return_maps=False)``: the exact f64 controls of
+    lane ``lane`` of config 5's fleet (axis ``lane % 2``) at ``x0``, from
+    the f32 model data, through :func:`zmp_exact`."""
+    A, B, d, zmp_row = lipm_system(ZMP_T, 0.8)
+    ref, lo, hi = (a + shift for a in footstep_plan(4, horizon, ZMP_T))
+    A32, B32, d32 = (np.asarray(a, np.float32) for a in (A, B, d))
+    return lambda lane, x0, return_maps=False: zmp_exact(
+        tt, A32, B32, d32, zmp_row, ref[lane % 2], lo[lane % 2],
+        hi[lane % 2], x0, return_maps=return_maps)
+
+
+def build_config5(tt, device, robots: int = ZMP_ROBOTS,
+                  horizon: int = ZMP_N, rho: float = 1.0,
+                  warm_iters: int = 20, cold_iters: int = 300,
+                  n_states: int = WARMUP_TICKS + TIMED_TICKS):
     """The config-5 fleet: both ZMP axes per robot through the port's
     ``from_mpc`` (``bench_all.py:_bipedal_workload``/``axis_sqp``), its
-    options and drifting x0 sequence (``bench_all.py:config5``, fused
-    lines)."""
+    options (by default rho and the warm budget as the reference's
+    measured policies chose them) and ``n_states`` drifting x0 states
+    (``bench_all.py:config5``, fused lines)."""
     import torch
     from copra_tpu_torch.qp.riccati import make_stagewise_step
 
-    A, B, d, zmp_row = lipm_system(ZMP_T, 0.8)
-    ref, lo, hi = footstep_plan(4, ZMP_N, ZMP_T)
-    lanes = 2 * ZMP_ROBOTS
+    lanes = 2 * robots
     rng = np.random.default_rng(7)
     x0_seq = [np.cumsum(rng.normal(scale=0.002, size=(t + 1, lanes, 3)),
                         axis=0)[-1].astype(np.float32)
-              for t in range(WARMUP_TICKS + TIMED_TICKS)]
+              for t in range(n_states)]
     t0 = time.perf_counter()
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
-    fleet = config5_fleet(tt, device)
-    opts = tt.SolverOptions(max_iter=300, early_exit=False, polish=False,
-                            eps_abs=1e-6, rho=1.0)
-    wopts = opts.replace(max_iter=20, topup_iters=80)
+    fleet = config5_fleet(tt, device, horizon=horizon, robots=robots)
+    opts = tt.SolverOptions(max_iter=cold_iters, early_exit=False,
+                            polish=False, eps_abs=1e-6, rho=rho)
+    wopts = opts.replace(max_iter=warm_iters, topup_iters=4 * warm_iters)
     tick = make_stagewise_step(fleet, wopts, cold_options=opts,
                                backend="fused")
-    torch.cuda.synchronize()
-    A32, B32, d32 = (np.asarray(a, np.float32) for a in (A, B, d))
-    oracle = lambda lane, x0: zmp_exact(
-        tt, A32, B32, d32, zmp_row, ref[lane % 2], lo[lane % 2],
-        hi[lane % 2], x0)[:, None]
+    _sync(device)
+    exact = config5_oracle(tt, horizon)
+    oracle = lambda lane, x0: exact(lane, x0)[:, None]
     return dict(name="config 5", tick=tick, opts=wopts, scale=None,
                 fleet=fleet, cold_opts=opts,
                 x0_seq=[f32(a) for a in x0_seq], x0_np=x0_seq,
@@ -1299,19 +1342,41 @@ def f32_plan(plan):
         if isinstance(getattr(plan, f.name), torch.Tensor)})
 
 
-def _drifting(x0s, rng, ticks: int, device):
+def _drift(x0s, rng, ticks: int):
+    """The ``ticks + 2`` cumulated drifts of ``bench_all.py``'s configs 1-3
+    (scale 0.02 a tick), ``[ticks + 2, B, x]``."""
+    return rng.normal(scale=0.02, size=(ticks + 2,) + x0s.shape).cumsum(0)
+
+
+def drifting(x0s, drift, device):
+    """The states ``x0s + drift[t]``, f32 tensors on ``device``."""
     import torch
 
-    drift = rng.normal(scale=0.02, size=(ticks + 2,) + x0s.shape).cumsum(0)
     x0_seq = (x0s[None] + drift).astype(np.float32)
     return [torch.tensor(x, device=device) for x in x0_seq]
 
 
-def build_config1(tt, device, batch: int = 0):
+def config1_costs(tt, device, N: int = C1_N):
+    """``bench_all.py:config1``'s costs (also config 3's): a full-size
+    position TrajectoryCost (weight 10) and a control cost (1e-3), f32."""
+    import torch
+
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return (tt.TrajectoryCost(M=tt.span_matrix(f32([[1.0, 0.0]]), N + 1),
+                              p=f32(np.zeros(N + 1)),
+                              weights=f32(np.full(N + 1, 10.0))),
+            tt.SimpleControlCost(p=f32(np.zeros(N)),
+                                 weights=f32(np.full(N, 1e-3))))
+
+
+def build_config1(tt, device, batch: int = 0, ticks: int = SHORT_TICKS,
+                  iters: int = C1_ITERS, rounds: int = C1_ROUNDS,
+                  rho=None):
     """``bench_all.py:config1``: LTI double integrator N = 10, a full-size
     position TrajectoryCost, a small control cost, +-2 control bounds,
     the accurate tick at 300 iterations x 3 rounds, rho from ``auto_rho``
-    (seed centre at the fleet mean)."""
+    (seed centre at the fleet mean) unless given; ``ticks + 2`` drifting
+    states."""
     import torch
 
     N, batch = C1_N, batch or FLEET
@@ -1322,31 +1387,31 @@ def build_config1(tt, device, batch: int = 0):
     t0 = time.perf_counter()
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(x0s[0]), N)
-    pos_row = tt.span_matrix(f32([[1.0, 0.0]]), N + 1)
-    costs = (tt.TrajectoryCost(M=pos_row, p=f32(np.zeros(N + 1)),
-                               weights=f32(np.full(N + 1, 10.0))),
-             tt.SimpleControlCost(p=f32(np.zeros(N)),
-                                  weights=f32(np.full(N, 1e-3))))
-    plan = tt.make_control_plan(
-        system, costs, (tt.ControlBoundConstraint.create([-2.0], [2.0]),))
-    opts = tt.SolverOptions(max_iter=C1_ITERS, early_exit=False,
-                            polish=False)
+    costs = config1_costs(tt, device)
+    constraints = (tt.ControlBoundConstraint.create([-2.0], [2.0]),)
+    plan = tt.make_control_plan(system, costs, constraints)
+    opts = tt.SolverOptions(max_iter=iters, early_exit=False, polish=False)
     center = x0s.mean(0)
-    opts = opts.replace(rho=tt.auto_rho(plan, x0s, opts, seed_center=center,
-                                        accurate=True,
-                                        accurate_rounds=C1_ROUNDS))
+    opts = opts.replace(rho=rho if rho is not None else tt.auto_rho(
+        plan, x0s, opts, seed_center=center, accurate=True,
+        accurate_rounds=rounds))
     step = tt.make_plan_step(plan, opts, batched=True, seed_center=center,
-                             accurate=True, accurate_rounds=C1_ROUNDS)
-    torch.cuda.synchronize()
+                             accurate=True, accurate_rounds=rounds)
+    _sync(device)
+    drift = _drift(x0s, rng, ticks)
     return dict(name="config 1", plan=plan, opts=opts, step=step,
-                x0s=x0s, x0_seq=_drifting(x0s, rng, SHORT_TICKS, device),
-                ticks=SHORT_TICKS, setup_s=time.perf_counter() - t0)
+                x0s=x0s, x0_seq=drifting(x0s, drift, device), drift=drift,
+                system=system, costs=costs, constraints=constraints,
+                ticks=ticks, setup_s=time.perf_counter() - t0)
 
 
-def build_roofline(tt, device, batch: int = 0, horizon: int = 0):
+def build_roofline(tt, device, batch: int = 0, horizon: int = 0,
+                   iters: int = ROOF_ITERS, rounds: int = ROOF_ROUNDS,
+                   ticks: int = ROOF_TICKS):
     """``bench.py:run_roofline``: one LTI point-mass plan (N = 256) for a
     fleet of states, the 75th percentile of the fleet's unconstrained |u|
-    as a binding bound, the accurate tick at 2 rounds x 30 iterations."""
+    as a binding bound, the accurate tick at 2 rounds x 30 iterations;
+    ``ticks + 2`` drifting states."""
     import torch
 
     batch, horizon = batch or FLEET, horizon or ROOF_N
@@ -1370,23 +1435,22 @@ def build_roofline(tt, device, batch: int = 0, horizon: int = 0):
     bnd = float(np.quantile(np.abs(useed), 0.75))
     plan = tt.make_control_plan(
         system, costs, (tt.ControlBoundConstraint.create([-bnd], [bnd]),))
-    opts = tt.SolverOptions(max_iter=ROOF_ITERS, early_exit=False,
-                            polish=False)
+    opts = tt.SolverOptions(max_iter=iters, early_exit=False, polish=False)
     center = x0s.mean(0)
     opts = opts.replace(rho=tt.auto_rho(plan, x0s, opts, seed_center=center,
                                         accurate=True,
-                                        accurate_rounds=ROOF_ROUNDS))
+                                        accurate_rounds=rounds))
     step = tt.make_plan_step(plan, opts, batched=True, seed_center=center,
-                             accurate=True, accurate_rounds=ROOF_ROUNDS)
-    torch.cuda.synchronize()
-    drift = np.zeros((ROOF_TICKS + 2, batch, 2))
+                             accurate=True, accurate_rounds=rounds)
+    _sync(device)
+    drift = np.zeros((ticks + 2, batch, 2))
     drift[:, :, 1] = np.cumsum(
-        rng.normal(scale=0.02, size=(ROOF_TICKS + 2, batch)), axis=0)
+        rng.normal(scale=0.02, size=(ticks + 2, batch)), axis=0)
     x0_seq = [torch.tensor((x0s + drift[t]).astype(np.float32),
-                           device=device) for t in range(ROOF_TICKS + 2)]
+                           device=device) for t in range(ticks + 2)]
     return dict(name="roofline fleet", plan=plan, opts=opts, step=step,
-                x0s=x0s, x0_seq=x0_seq, ticks=ROOF_TICKS, bound=bnd,
-                setup_s=time.perf_counter() - t0)
+                x0s=x0s, x0_seq=x0_seq, ticks=ticks, bound=bnd,
+                rounds=rounds, setup_s=time.perf_counter() - t0)
 
 
 def config2_terms(tt, dtype):
@@ -1406,13 +1470,13 @@ def config2_terms(tt, dtype):
     return costs, constraints
 
 
-def build_config2(tt, device, batch: int = 0):
+def build_config2(tt, device, batch: int = 0, ticks: int = SHORT_TICKS,
+                  iters: int = C2_ITERS, rho=None):
     """``bench_all.py:config2``: LTI double integrator N = 10 with a
     trajectory, a control, a mixed and two bound constraints, all f32,
     400 iterations; the general tick through the shared general kernel
-    (``use_fused=True``) with rho from ``auto_rho(use_fused=True)``."""
-    import torch
-
+    (``use_fused=True``) with rho from ``auto_rho(use_fused=True)`` unless
+    given; ``ticks + 2`` drifting states."""
     N, batch = C2_N, batch or FLEET
     A, B, d = double_integrator()
     rng = np.random.default_rng(2)
@@ -1423,18 +1487,19 @@ def build_config2(tt, device, batch: int = 0):
     system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(x0s[0]), N)
     costs, constraints = config2_terms(tt, np.float32)
     plan = tt.make_control_plan(system, costs, constraints)
-    opts = tt.SolverOptions(max_iter=C2_ITERS, early_exit=False,
-                            polish=False)
+    opts = tt.SolverOptions(max_iter=iters, early_exit=False, polish=False)
     center = x0s.mean(0)
-    opts = opts.replace(rho=tt.auto_rho(plan, x0s, opts, seed_center=center,
-                                        use_fused=True))
+    opts = opts.replace(rho=rho if rho is not None else tt.auto_rho(
+        plan, x0s, opts, seed_center=center, use_fused=True))
     step = tt.make_plan_step(plan, opts, batched=True, seed_center=center,
                              use_fused=True)
-    torch.cuda.synchronize()
+    _sync(device)
+    drift = _drift(x0s, rng, ticks)
     return dict(name="config 2", plan=plan, opts=opts, step=step, x0s=x0s,
-                center=center, x0_seq=_drifting(x0s, rng, SHORT_TICKS,
-                                                device),
-                ticks=SHORT_TICKS, setup_s=time.perf_counter() - t0)
+                center=center, x0_seq=drifting(x0s, drift, device),
+                drift=drift, system=system, costs=costs,
+                constraints=constraints, ticks=ticks,
+                setup_s=time.perf_counter() - t0)
 
 
 def held(got, want):
@@ -2037,14 +2102,11 @@ def chol_vs_plain(ck, K, label: str, sm_hz: float = 0.0):
     return err, ms, plain_ms, min(lib_ms.values()), bnd
 
 
-def build_config2_ltv(tt, device, dtype, batch: int = 0):
-    """Config 2's costs and constraints on per-lane LTV dynamics: A and B
-    perturbed by 1e-3 per lane (``bench_all.py:config3``'s fleet), so every
-    lane has its own condensed rows.  Returns the batched system, the
-    terms and a drifting x0 sequence (numpy, float64)."""
-    import torch
-
-    N, batch = C2_N, batch or FLEET
+def config3_fleet(batch: int = FLEET, ticks: int = SHORT_TICKS):
+    """``bench_all.py:config3``'s fleet: the double integrator at N = 10
+    with A and B perturbed by 1e-3 per lane and stage, its x0s and the
+    ``ticks + 2`` cumulated drifts; numpy, float64."""
+    N = C2_N
     A, B, d = double_integrator()
     rng = np.random.default_rng(3)
     As = np.repeat(np.repeat(A[None], N, 0)[None], batch, 0)
@@ -2054,7 +2116,17 @@ def build_config2_ltv(tt, device, dtype, batch: int = 0):
     ds = np.repeat(np.repeat(d[None], N, 0)[None], batch, 0)
     x0s = np.array([1.0, 0.0])[None] + rng.normal(scale=[0.3, 0.2],
                                                   size=(batch, 2))
-    drift = rng.normal(scale=0.02, size=(SHORT_TICKS + 2, batch, 2)).cumsum(0)
+    return As, Bs, ds, x0s, _drift(x0s, rng, ticks)
+
+
+def build_config2_ltv(tt, device, dtype, batch: int = 0):
+    """Config 2's costs and constraints on per-lane LTV dynamics: A and B
+    perturbed by 1e-3 per lane (``bench_all.py:config3``'s fleet), so every
+    lane has its own condensed rows.  Returns the batched system, the
+    terms and a drifting x0 sequence (numpy, float64)."""
+    import torch
+
+    As, Bs, ds, x0s, drift = config3_fleet(batch or FLEET)
     ten = lambda a: torch.tensor(np.asarray(a, dtype), device=device)
     system = tt.LTVSystem(A=ten(As), B=ten(Bs), d=ten(ds), x0=ten(x0s))
     costs, constraints = config2_terms(tt, dtype)
@@ -3122,14 +3194,37 @@ def early_exit_phase(tt, sk, cfgs, reset_counts):
     return launches
 
 
-def build_config1_stagewise(tt, device):
-    """Config 1's problem (``bench_all.py:config1``) in stagewise form
-    over the fleet, its native-oracle plan and the drifting states of
-    ``bench_all.py:_stagewise_line``."""
+def stagewise_fleet(tt, system, costs, constraints, x0s, drift):
+    """A condensed configuration in stagewise form over its fleet
+    (``bench_all.py:_stagewise_line``): the ``from_mpc`` problem of one
+    lane broadcast to the lanes of ``x0s``, and the line's states (the
+    ``drift`` of ``ticks + 2`` rows held at its last row, plus 0.001 a
+    tick), ``ticks + 9`` of them."""
     import dataclasses
 
     import torch
     from copra_tpu_torch.qp.riccati import from_mpc
+
+    batch, ticks = x0s.shape[0], drift.shape[0] - 2
+    dev = system.A.device
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    one = from_mpc(system, costs, constraints)
+    sqp = dataclasses.replace(one, **{
+        f.name: getattr(one, f.name).expand(
+            (batch,) + getattr(one, f.name).shape).contiguous()
+        for f in dataclasses.fields(one) if getattr(one, f.name) is not None
+    })
+    sqp = dataclasses.replace(sqp, x0=f32(x0s))
+    x0_seq = [f32(x0s + drift[min(t, ticks + 1)] + 0.001 * t)
+              for t in range(ticks + 9)]
+    return sqp, x0_seq
+
+
+def build_config1_stagewise(tt, device):
+    """Config 1's problem (``bench_all.py:config1``) in stagewise form
+    over the fleet, its native-oracle plan and the drifting states of
+    ``bench_all.py:_stagewise_line``."""
+    import torch
 
     N, batch = C1_N, FLEET
     A, B, d = double_integrator()
@@ -3138,23 +3233,11 @@ def build_config1_stagewise(tt, device):
                                                   size=(batch, 2))
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     system = tt.LTISystem.create(f32(A), f32(B), f32(d), f32(x0s[0]), N)
-    costs = (tt.TrajectoryCost(M=tt.span_matrix(f32([[1.0, 0.0]]), N + 1),
-                               p=f32(np.zeros(N + 1)),
-                               weights=f32(np.full(N + 1, 10.0))),
-             tt.SimpleControlCost(p=f32(np.zeros(N)),
-                                  weights=f32(np.full(N, 1e-3))))
+    costs = config1_costs(tt, device)
     cons = (tt.ControlBoundConstraint.create([-2.0], [2.0]),)
     plan = tt.make_control_plan(system, costs, cons)
-    one = from_mpc(system, costs, cons)
-    sqp = dataclasses.replace(one, **{
-        f.name: getattr(one, f.name).expand(
-            (batch,) + getattr(one, f.name).shape).contiguous()
-        for f in dataclasses.fields(one) if getattr(one, f.name) is not None
-    })
-    sqp = dataclasses.replace(sqp, x0=f32(x0s))
-    drift = rng.normal(scale=0.02, size=(SHORT_TICKS + 2, batch, 2)).cumsum(0)
-    x0_seq = [f32(x0s + drift[min(t, SHORT_TICKS + 1)] + 0.001 * t)
-              for t in range(SHORT_TICKS + 9)]
+    sqp, x0_seq = stagewise_fleet(tt, system, costs, cons, x0s,
+                                  _drift(x0s, rng, SHORT_TICKS))
     return sqp, plan, x0_seq
 
 
@@ -5171,6 +5254,122 @@ def parity_phase(tt, ak, sk, dev, cfg5, reset_counts, card):
             "fused_stagewise_tick_streamed": k5}, k7_err
 
 
+# ---------------------------------------------------------------------------
+# The benchmark entry points (phase 35).
+# ---------------------------------------------------------------------------
+
+# bench_all_torch.py's lines per config (BENCHALL.json's count) and the
+# kernel each gated line's route launches: None for a line with no kernel
+# (none may launch), "" for a line that is not checked for launches
+BENCHALL_ROUTES = {
+    1: ("fused_admm_box_shared", "", "fused_stagewise_tick"),
+    2: ("fused_admm_general_shared", "", "fused_stagewise_tick"),
+    3: ("fused_admm_box_lanes", None),
+    5: ("",) + ("fused_stagewise_tick",) * 11,
+    6: ("", "fused_stagewise_tick_streamed", "fused_stagewise_tick_streamed",
+        None),
+    8: ("",) * 4}
+BENCH_TIMEOUT_S = 900
+
+
+def _bench_script(script: str) -> tuple:
+    """``python3 script`` at its default sizes as a child process, its
+    artifact under ``smoke_out/``: ``(its JSON lines, seconds)``; a
+    non-zero exit fails."""
+    env = dict(os.environ,
+               BENCHALL_OUT=os.path.join("smoke_out", "BENCHALL_torch.json"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-u", script], env=env,
+                          capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{script} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")], secs
+
+
+def _launched(what: str, launches: dict, entry) -> None:
+    """``entry`` None: no kernel of ``launches``; else ``entry`` launched."""
+    if entry is None and launches:
+        fail(f"{what}: a route with no kernel launched {launches}")
+    if entry and not launches.get(entry, 0) > 0:
+        fail(f"{what}: {entry} was never launched ({launches})")
+
+
+def bench_phase(kernels: dict) -> None:
+    """Phase 35: ``bench_torch.py`` (the accurate mode with its chained,
+    roofline and fast points) and ``bench_all_torch.py`` (configs 1, 2, 3,
+    5, 6 and 8) run as child processes, each line held to its contract
+    (1e-5 absolute for the condensed lines and the chained and roofline
+    points, 1e-4 relative for configs 5 and 6 and config 3's direct LQR
+    tick, an f32 sweep) and to the launches its route implies (each line
+    counts its own, ``ops.counts``); the launches are added to
+    ``kernels``."""
+    os.makedirs("smoke_out", exist_ok=True)
+    lines, secs = _bench_script("bench_torch.py")
+    if len(lines) != 1:
+        fail(f"bench_torch.py printed {len(lines)} JSON lines, not 1")
+    out, roof = lines[0], lines[0]["roofline_point"]
+    errs = (out["max_err_vs_exact"], out["chained_max_err_vs_exact"],
+            roof["max_err_vs_exact"])
+    print(f"bench_torch.py ({out['device_kind']}, {out['power_limit']}): "
+          f"{out['value']} solves/s, measured device "
+          f"{out['measured_device_ms_per_tick']} ms a tick, dispatch share "
+          f"{out['measured_dispatch_share']}, max_err_vs_exact {errs[0]}; "
+          f"chained {out['chained_solves_per_s']} solves/s at {errs[1]}; "
+          f"roofline {roof['solves_per_s']} solves/s at {errs[2]}; fast "
+          f"{out['fast_solves_per_s']} solves/s at {out['fast_max_err']}; "
+          f"launches {out['launches']}, chained {out['chained_launches']}, "
+          f"roofline {roof['launches']}, fast {out['fast_launches']}; "
+          f"{secs:.1f} s")
+    if not max(errs) <= ORACLE_TOL:
+        fail(f"bench_torch.py: a gate above {ORACLE_TOL}: {errs}")
+    for what, got, entry in (
+            ("bench_torch.py", out["launches"], "fused_admm_box_lanes"),
+            ("its chained point", out["chained_launches"],
+             "fused_admm_box_lanes"),
+            ("its roofline point", roof["launches"], "fused_admm_box_shared"),
+            ("its fast point", out["fast_launches"], "fused_admm_box")):
+        _launched(what, got, entry)
+    counted = [out["launches"], out["chained_launches"], roof["launches"],
+               out["fast_launches"]]
+
+    lines, secs = _bench_script("bench_all_torch.py")
+    for config, routes in BENCHALL_ROUTES.items():
+        got = [line for line in lines if line["config"] == config]
+        if len(got) != len(routes):
+            fail(f"bench_all_torch.py config {config}: {len(got)} lines, "
+                 f"not {len(routes)}")
+        for k, (line, entry) in enumerate(zip(got, routes)):
+            what = f"bench_all_torch.py config {config} line {k + 1}"
+            _launched(what, line["launches"], entry)
+            counted.append(line["launches"])
+            if "max_err_vs_exact" not in line:
+                continue
+            rel = config in (5, 6) or "max_err_rel" in line
+            err = line["max_err_rel"] if rel else line["max_err_vs_exact"]
+            tol = REL_TOL if rel else ORACLE_TOL
+            if not err <= tol:
+                fail(f"{what} ({line['metric']}): "
+                     f"{'max_err_rel' if rel else 'max_err_vs_exact'} "
+                     f"{err} > {tol}")
+        last = got[-1]
+        print(f"bench_all_torch.py config {config} "
+              f"({last['device_kind']}, {last['power_limit']}), "
+              f"{last['seconds']} s: " + "; ".join(
+                  f"{line['metric'][:48]}... "
+                  + ", ".join(f"{key} {line[key]}" for key in (
+                      "value", "max_err_vs_exact", "max_err_rel",
+                      "budget_feasible_in_env", "within_wall_budget",
+                      "within_device_budget") if key in line)
+                  for line in got))
+    print(f"bench_all_torch.py: {len(lines)} lines in {secs:.1f} s")
+    for launches in counted:
+        for entry, n in launches.items():
+            kernels[entry]["launches"] += n
+
+
 def main() -> int:
     import torch
 
@@ -5393,6 +5592,10 @@ def main() -> int:
                                     reset_counts, card)
     for entry, n in launches.items():
         kernels[entry]["launches"] += n
+    # phase 35: the benchmark entry points, as child processes
+    t_phase = time.perf_counter()
+    bench_phase(kernels)
+    print(f"phase 35: {time.perf_counter() - t_phase:.1f} s")
     k7 = kernels["fused_admm_general"]
     k7["max_abs_err"] = max(k7["max_abs_err"], k7_err)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)

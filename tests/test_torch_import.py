@@ -8,6 +8,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = """
@@ -79,7 +81,19 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
     source has no ``import jax``, ``from jax``, ``import copra_tpu`` or
     ``from copra_tpu`` (``copra_tpu_torch`` is the port), at any depth,
     and importing it in a fresh interpreter loads neither."""
-    path = os.path.join(REPO, "chip_smoke.py")
+    _script_imports_no_jax_and_no_reference("chip_smoke")
+
+
+@pytest.mark.parametrize("module", ["bench_torch", "bench_all_torch"])
+def test_bench_scripts_import_no_jax_and_no_reference(module):
+    """The port's benchmark entry points run on the card's host too: their
+    sources import neither JAX nor ``copra_tpu``, and importing either in
+    a fresh interpreter loads neither."""
+    _script_imports_no_jax_and_no_reference(module)
+
+
+def _script_imports_no_jax_and_no_reference(module: str):
+    path = os.path.join(REPO, module + ".py")
     with open(path) as f:
         source = f.read()
     bad = [f"{n}: {line.strip()}"
@@ -93,7 +107,7 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
                 if name.split(".")[0] in ("jax", "jaxlib", "copra_tpu")]
     assert not bad, bad
     proc = _run_fresh(
-        "import sys\nimport chip_smoke\n"
+        f"import sys\nimport {module}\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'copra_tpu'))\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n")
