@@ -86,18 +86,21 @@ def parse_device(argv):
     return dev
 
 
-def card(device) -> dict:
+def card(device, count: int = 1) -> dict:
     """``device_kind`` (the card's name) and ``power_limit`` (``nvidia-smi
-    --query-gpu=name,power.limit``'s second field) of ``device``; on the
-    CPU ``"cpu"`` and None."""
+    --query-gpu=name,power.limit``'s second field) of ``device``, or with
+    ``count`` > 1 of the first ``count`` cards (each value once, joined by
+    ", " where the cards differ); on the CPU ``"cpu"`` and None."""
     if device.type != "cuda":
         return {"device_kind": "cpu", "power_limit": None}
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
-    return {"device_kind": torch.cuda.get_device_name(device),
-            "power_limit": out[0].split(",")[-1].strip()}
+    names = dict.fromkeys(torch.cuda.get_device_name(d)
+                          for d in ([device] if count == 1 else range(count)))
+    limits = dict.fromkeys(ln.split(",")[-1].strip() for ln in out[:count])
+    return {"device_kind": ", ".join(names), "power_limit": ", ".join(limits)}
 
 
 def lanes_of(batch: int, extra=()) -> tuple:

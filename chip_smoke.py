@@ -302,7 +302,20 @@ Phases, one line or more each:
     roofline points; 1e-4 relative on configs 5 and 6 and on config 3's
     f32 direct LQR tick) and the kernel its route launches required (no
     launch on a route with no kernel) by each line's own launch counts;
-    each script's seconds.
+    each script's seconds;
+36. the weak-scaling harness as child processes: ``bench_scaling_torch.py``
+    on the visible cards at the reference's sizes (512 lanes a device,
+    N = 50, f32, 60 iterations, ``BENCH_STEPS`` 3; NCCL groups of 1, 2,
+    4, ... processes, one card each) without its controls, as the
+    reference runs on an accelerator, and with ``--device cpu`` at 1 and
+    2 gloo processes, ``BENCH_STEPS`` 1, with the controls and the
+    K-process cluster summary (the script's sizes 4 and 8 and its 3 steps
+    a window cut for time): every mesh line's rate above 0 and its
+    controls equal bit for bit to the unsharded ``solve_mpc_batch`` of its
+    lanes, the weak-scaling summary at 1.0 on one device, on the CPU the
+    control and cluster lines and their summaries, the card's name and
+    power limit on the card's lines, and no kernel launched (the step runs
+    eager ``solve_qp`` and four all-reduces); each run's seconds.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  A chain's
@@ -5370,6 +5383,101 @@ def bench_phase(kernels: dict) -> None:
             kernels[entry]["launches"] += n
 
 
+# ---------------------------------------------------------------------------
+# The weak-scaling harness (phase 36).
+# ---------------------------------------------------------------------------
+
+SCALING_SIZES = (1, 2, 4, 8, 16, 32)
+# the CPU run's cuts (the script's defaults: 8 processes, 3 steps a window)
+SCALING_CPU_PROCESSES = 2
+SCALING_CPU_STEPS = 1
+
+
+def _scaling_run(device: str, env_extra: dict) -> tuple:
+    """``bench_scaling_torch.py`` on ``device`` as a child process, its
+    record under ``smoke_out/``: ``(its JSON lines, seconds)``; a non-zero
+    exit fails."""
+    env = dict(os.environ, **env_extra, SCALING_OUT=os.path.join(
+        "smoke_out", f"SCALING_{device}.json"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-u", "bench_scaling_torch.py"]
+        + ([] if device == "cuda" else ["--device", "cpu"]), env=env,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"bench_scaling_torch.py ({device}) exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    return [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")], secs
+
+
+def scaling_phase(kernels: dict) -> None:
+    """Phase 36: ``bench_scaling_torch.py`` on the visible cards without
+    its controls, then on the CPU at 1 and 2 processes; each run's lines
+    held (see the module's docstring) and their launches, none expected,
+    added to ``kernels``."""
+    import torch
+
+    os.makedirs("smoke_out", exist_ok=True)
+    runs = (("cuda", [k for k in SCALING_SIZES
+                      if k <= torch.cuda.device_count()],
+             dict(BENCH_SKIP_CONTENTION="1")),
+            ("cpu", [k for k in SCALING_SIZES
+                     if k <= SCALING_CPU_PROCESSES],
+             dict(BENCH_CPU_PROCESSES=str(SCALING_CPU_PROCESSES),
+                  BENCH_STEPS=str(SCALING_CPU_STEPS))))
+    for device, sizes, env in runs:
+        lines, secs = _scaling_run(device, env)
+        what = f"bench_scaling_torch.py ({device})"
+
+        def having(key):
+            return [line for line in lines if key in line]
+
+        mesh = having("devices")
+        if [line["devices"] for line in mesh] != sizes:
+            fail(f"{what}: mesh lines at {[x['devices'] for x in mesh]}, "
+                 f"not {sizes}")
+        for line in mesh:
+            if not (line["solves_per_s"] > 0
+                    and line["max_abs_vs_unsharded"] == 0):
+                fail(f"{what}: {line}")
+            if device == "cuda" and not (line["device_kind"]
+                                         and line["power_limit"]):
+                fail(f"{what}: no card name or power limit: {line}")
+        weak = having("min_efficiency")
+        if len(weak) != 1 or weak[0]["efficiency"]["1"] != 1.0:
+            fail(f"{what}: weak-scaling summary {weak}")
+        if device == "cpu":
+            for key, want in (("contention_control_processes", sizes),
+                              ("independent_devices_in_one_process", sizes),
+                              ("multiprocess_cluster_processes", sizes[1:])):
+                got = [line[key] for line in having(key)]
+                if got != want:
+                    fail(f"{what}: {key} lines at {got}, not {want}")
+            for key in ("single_process_runtime_efficiency",
+                        "min_efficiency_vs_contention_ceiling",
+                        "min_efficiency_vs_lockstep_ceiling"):
+                if len(having(key)) != 1:
+                    fail(f"{what}: no summary with {key}")
+        for line in having("launches"):
+            _launched(f"{what} {line}", line["launches"], None)
+            for entry, n in line["launches"].items():
+                kernels[entry]["launches"] += n
+        print(f"{what} ({mesh[0]['device_kind']}, {mesh[0]['power_limit']}, "
+              f"{mesh[0]['threads_per_process']} torch threads a process, "
+              f"{mesh[0]['backend']}): solves/s "
+              + ", ".join(f"{x['devices']}: {x['solves_per_s']}"
+                          for x in mesh)
+              + f"; weak-scaling efficiency {weak[0]['efficiency']}; "
+              f"max_abs_vs_unsharded 0; f32 max_err_vs_exact (ungated) "
+              f"{max(x['max_err_vs_exact'] for x in mesh):.3e}; "
+              f"{secs:.1f} s")
+        for line in lines:
+            if "metric" in line:
+                print(f"  {json.dumps(line)}")
+
+
 def main() -> int:
     import torch
 
@@ -5596,6 +5704,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     bench_phase(kernels)
     print(f"phase 35: {time.perf_counter() - t_phase:.1f} s")
+    # phase 36: the weak-scaling harness, as child processes
+    t_phase = time.perf_counter()
+    scaling_phase(kernels)
+    print(f"phase 36: {time.perf_counter() - t_phase:.1f} s")
     k7 = kernels["fused_admm_general"]
     k7["max_abs_err"] = max(k7["max_abs_err"], k7_err)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)

@@ -84,7 +84,8 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
     _script_imports_no_jax_and_no_reference("chip_smoke")
 
 
-@pytest.mark.parametrize("module", ["bench_torch", "bench_all_torch"])
+@pytest.mark.parametrize("module", ["bench_torch", "bench_all_torch",
+                                    "bench_scaling_torch"])
 def test_bench_scripts_import_no_jax_and_no_reference(module):
     """The port's benchmark entry points run on the card's host too: their
     sources import neither JAX nor ``copra_tpu``, and importing either in
