@@ -15,6 +15,11 @@ So the capture's counts (of every wrapper in
 :data:`~copra_tpu_torch.ops.counts.COUNTED`) are taken back and kept per
 chain, and every replay adds them again: the counts say what the card
 ran.
+
+A chain's set-up is the span ``copra.chain.capture`` and counts one
+``chain.captures``; a call is the spans ``copra.chain.copy_in`` (the
+values copied into the graph's inputs) and ``copra.chain.replay``
+(:mod:`~copra_tpu_torch.profiling`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import dataclasses
 from typing import Callable, Sequence
 
 import torch
+
+from . import profiling
 
 Tensor = torch.Tensor
 
@@ -80,6 +87,7 @@ class CapturedChain:
     that gives one.
     """
 
+    @profiling.traced("copra.chain.capture")
     def __init__(self, fn: Callable, inputs: Sequence[Tensor], name: str,
                  plain_route: str):
         from .ops._derivative import refuse_gradient
@@ -114,6 +122,7 @@ class CapturedChain:
                     if w.launches != b:
                         launches.append((w, w.launches - b))
                     w.launches = b
+        profiling.count("chain.captures")
         self.launches = tuple(launches)
         self.graph = graph
         self.outputs = outputs
@@ -122,9 +131,11 @@ class CapturedChain:
         from .ops._derivative import refuse_gradient
 
         refuse_gradient(self.entry, self.plain_route, values)
-        for dst, v in zip(self.inputs, values):
-            dst.copy_(v)
-        self.graph.replay()
+        with profiling.trace_span("copra.chain.copy_in"):
+            for dst, v in zip(self.inputs, values):
+                dst.copy_(v)
+        with profiling.trace_span("copra.chain.replay"):
+            self.graph.replay()
         for wrapper, n in self.launches:
             wrapper.launches += n
         return self.outputs

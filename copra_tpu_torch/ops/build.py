@@ -20,6 +20,8 @@ import subprocess
 import time
 from typing import Dict, Tuple
 
+from .. import profiling
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -67,6 +69,7 @@ def _start(name: str):
         return path, None, None, time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    profiling.count("ops.compiles")
     proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp,
                              source_path(name)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -99,9 +102,11 @@ def build_all() -> Dict[str, Tuple[str, float]]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use (in the
+    span ``copra.ops.load_library``)."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build_library(name)[0])
+        with profiling.trace_span("copra.ops.load_library"):
+            lib = ctypes.CDLL(build_library(name)[0])
         _libs[name] = lib
     return lib

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import profiling
 from .._precision import highest_precision
 from .._tensors import matvec as _mv, matvec_t as _mtv
 from ._derivative import refuse_gradient
@@ -666,6 +667,7 @@ def pack_plan(sqp, gains: LQRGains, rho_x: Tensor, rho_u: Tensor, rows,
     return cols.permute(1, 2, 0).contiguous()
 
 
+@profiling.traced("copra.build_fused_plan")
 @highest_precision
 def build_fused_plan(sqp, options) -> FusedStagewisePlan:
     """Pack a (batched) StagewiseQP + options into a fused-tick plan.
@@ -791,6 +793,26 @@ def _lane_residuals(sqp, options, rho_x: Tensor, rho_u: Tensor, rows, X, U,
     return r_prim, r_dual, (r_prim <= eps) & (r_dual <= eps * _dual_scale(sqp))
 
 
+# the device counters of the top-up: ticks that took its decision, ticks
+# whose top-up ran, and the lanes that missed the tolerance at the
+# decision, summed over the ticks
+TOPUP_COUNTERS = ("stagewise.ticks", "stagewise.topups",
+                  "stagewise.topup_lanes")
+_bounds = {}
+
+
+def _topup_bounds(device) -> Tuple[Tensor, Tensor]:
+    """``([1, 0, 0], [1, 1, 2**62])`` on ``device``: the lanes missed,
+    clamped between them, give ``(1, 1 if the top-up ran else 0, lanes
+    missed)`` in one op."""
+    t = _bounds.get(device)
+    if t is None:
+        t = _bounds[device] = tuple(
+            torch.tensor(v, dtype=torch.int64, device=device)
+            for v in ([1, 0, 0], [1, 1, 2 ** 62]))
+    return t
+
+
 @highest_precision
 def solve_stagewise_fused(sqp, options, warm_start=None,
                           return_warm: bool = False,
@@ -813,7 +835,9 @@ def solve_stagewise_fused(sqp, options, warm_start=None,
     converged, so the first run's values come back bit for bit and no
     tick syncs the host (a tick can be captured in a CUDA graph).  The
     residuals are taken again after it, as the reference does after its
-    ``lax.cond``.
+    ``lax.cond``.  The device counters :data:`TOPUP_COUNTERS` add the
+    tick, whether its top-up ran and the lanes that missed the tolerance
+    at the decision (:func:`~copra_tpu_torch.profiling.counters`).
 
     Early exit (``options.early_exit=True``): the chunked loop of
     ``solve_stagewise`` (:func:`_solve_early_exit`), each chunk one
@@ -884,7 +908,12 @@ def solve_stagewise_fused(sqp, options, warm_start=None,
         # batch-level top-up, skipped on the device when every lane
         # converged; converged lanes of a tick that runs it sit at their
         # fixed point
-        skip = res[2].all().to(torch.int32)
+        missed = (~res[2]).sum()
+        skip = (missed == 0).to(torch.int32)
+        # counted on the device: (ticks, ticks whose top-up ran, lanes
+        # missed)
+        profiling.device_counter(TOPUP_COUNTERS, missed.device).add_(
+            torch.clamp(missed, *_topup_bounds(missed.device)))
         more = deliver(*run(warm1, topup, work, skip), skip=skip)
         if n_polish > 0:
             # a skipped re-polish returns the unpolished state it was

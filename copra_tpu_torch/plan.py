@@ -40,6 +40,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import profiling
 from ._graph import CapturedChain, tree_map
 from ._precision import highest_precision
 from ._tensors import as_tensor, common, matvec, matvec_t
@@ -91,6 +92,7 @@ def _rowvec(v: Tensor, M: Tensor) -> Tensor:
     return (v.unsqueeze(-2) @ M).squeeze(-2)
 
 
+@profiling.traced("copra.make_control_plan")
 @highest_precision
 def make_control_plan(system: System,
                       costs: Sequence[CostFunction],
@@ -252,6 +254,7 @@ def _slice_plan(plan: ControlPlan, idx) -> ControlPlan:
     return dataclasses.replace(plan, **kw)
 
 
+@profiling.traced("copra.auto_rho")
 def auto_rho(plan: ControlPlan,
              x0s,
              options: SolverOptions,
@@ -762,6 +765,7 @@ def make_plan_step(plan: ControlPlan,
     return _make_general_step(plan, options, seed_center, batched, gen_fused)
 
 
+@profiling.traced("copra.make_plan_multistep")
 def make_plan_multistep(plan: ControlPlan,
                         options: SolverOptions = SolverOptions(),
                         seed_center=None,
@@ -810,6 +814,7 @@ def make_plan_multistep(plan: ControlPlan,
         return (torch.stack(us), torch.stack(statuses), torch.stack(rds),
                 w)
 
+    @profiling.traced("copra.plan_multistep")
     def step_many(x0_seq, warm: Optional[WarmStart] = None):
         x0_seq = as_tensor(x0_seq, dev)
         if x0_seq.dim() != 3 or x0_seq.shape[0] < 1:
@@ -828,7 +833,9 @@ def make_plan_multistep(plan: ControlPlan,
                 ticks, (x0_seq, wy), "make_plan_multistep",
                 "make_plan_step(..., accurate=True, use_fused=False) tick "
                 "by tick")
-        return tree_map(torch.clone, chain(x0_seq, wy))
+        out = chain(x0_seq, wy)
+        with profiling.trace_span("copra.chain.copy_out"):
+            return tree_map(torch.clone, out)
 
     step_many.chains = chains
     return step_many

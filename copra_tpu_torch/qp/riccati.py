@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from .._precision import highest_precision
 from .._scan import affine_combine, associative_scan
 from .._tensors import (common, matvec as _mv, matvec_t as _mtv,
@@ -1197,6 +1198,7 @@ class StagewiseTick:
         return _xla_tick_exec(self._sqp, self._scale, x0, warm, opts,
                               self._parallel_scan)
 
+    @profiling.traced("copra.stagewise_tick")
     def __call__(self, x0, warm=None):
         if not self._batched:
             x0 = x0[None]
@@ -1665,7 +1667,9 @@ class StagewiseMultistep:
             chain = self._chains[key] = CapturedChain(
                 fn, (xs if exogenous else x0,) + warm,
                 "make_stagewise_multistep", _PLAIN_TICKS)
-        return tree_map(torch.clone, chain(xs if exogenous else x0, *warm))
+        out = chain(xs if exogenous else x0, *warm)
+        with profiling.trace_span("copra.chain.copy_out"):
+            return tree_map(torch.clone, out)
 
     def _check_plant(self, x0: Tensor) -> None:
         """Capture the custom plant alone, so that one the chain cannot
@@ -1698,6 +1702,7 @@ class StagewiseMultistep:
         copy_into(self._data, self._build(sqp_new))
         self._cold_tick.replan(sqp_new)
 
+    @profiling.traced("copra.stagewise_multistep")
     def __call__(self, x0, n_ticks: int, warm=None, x0_seq=None):
         n_ticks = int(n_ticks)
         if n_ticks < 1:
@@ -1728,13 +1733,15 @@ class StagewiseMultistep:
                 cold = (Uc[:, 0], infoc.status)
         nexts, u0s, statuses, info, warm = self._run(n_ticks, x0, warm,
                                                      x0_seq)
-        if cold is not None:
-            # the cold tick's control was applied to the plant: return it,
-            # so that states[k+1] == plant(states[k], U0s[k]) throughout
-            u0s = torch.cat([cold[0][None], u0s])
-            statuses = torch.cat([cold[1][None], statuses])
-            nexts = torch.cat([x0[None], nexts])
-        states = torch.cat([states0[None], nexts])
+        with profiling.trace_span("copra.chain.copy_out"):
+            if cold is not None:
+                # the cold tick's control was applied to the plant: return
+                # it, so that states[k+1] == plant(states[k], U0s[k])
+                # throughout
+                u0s = torch.cat([cold[0][None], u0s])
+                statuses = torch.cat([cold[1][None], statuses])
+                nexts = torch.cat([x0[None], nexts])
+            states = torch.cat([states0[None], nexts])
         if not self._batched:
             states, u0s, statuses = states[:, 0], u0s[:, 0], statuses[:, 0]
             info = QPSolution(**{f.name: getattr(info, f.name)[0]
@@ -1742,6 +1749,7 @@ class StagewiseMultistep:
         return states, u0s, statuses, info, warm
 
 
+@profiling.traced("copra.make_stagewise_multistep")
 def make_stagewise_multistep(sqp: StagewiseQP,
                              options: SolverOptions = SolverOptions(),
                              cold_options: Optional[SolverOptions] = None,

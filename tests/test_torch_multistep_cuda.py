@@ -289,3 +289,63 @@ def test_plant_that_cannot_be_captured_raises_naming_it(cuda):
                                        plant=host_plant)
     with pytest.raises(RuntimeError, match="host_plant"):
         many(sqp.x0, 2)
+
+
+@pytest.mark.cuda
+def test_replay_kernels_carry_their_graph_launch_correlation(cuda):
+    """Under a CUDA-only ``torch.profiler``, every device op of one replay
+    of a captured stagewise chain carries the correlation id of its
+    ``cudaGraphLaunch``; a call of the chain issues that launch inside the
+    program's ``copra.chain.replay`` span, on the profiler's clock; the
+    tick's top-up counters move on the device with no capture counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from copra_tpu_torch import profiling
+
+    sqp = _sqp(12, 3, 2, 2, 33, seed=15)
+    opts = tt.SolverOptions(max_iter=8, early_exit=False, rho=0.3,
+                            eps_abs=1e-8, topup_iters=20)
+    many = tt.make_stagewise_multistep(sqp, opts, backend="fused")
+    seq = sqp.x0[None].expand(2, -1, -1).contiguous()
+    warm = many(None, 2, x0_seq=seq)[-1]
+    torch.cuda.synchronize()
+    chain = many.chains[(2, True)]
+
+    def events(prof):
+        evs = prof.profiler.kineto_results.events()
+        ops = [e for e in evs if e.device_type() == DeviceType.CUDA]
+        launches = [e for e in evs if e.device_type() != DeviceType.CUDA
+                    and "cudaGraphLaunch" in e.name()]
+        return ops, launches
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chain.graph.replay()
+        torch.cuda.synchronize()
+    ops, launches = events(prof)
+    assert len(launches) == 1 and ops
+    assert {e.correlation_id() for e in ops} == {
+        launches[0].correlation_id()}
+    assert any("stagewise_tick_kernel" in e.name() for e in ops)
+
+    profiling.take_spans()
+    before = profiling.counters()
+    profiling.record(True)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            many(None, 2, warm=warm, x0_seq=seq)
+            torch.cuda.synchronize()
+    finally:
+        profiling.record(False)
+    spans = profiling.take_spans()
+    after = profiling.counters()
+    _, launches = events(prof)
+    replay = [s for s in spans if s[0] == "copra.chain.replay"]
+    assert len(launches) == 1 and len(replay) == 1
+    assert replay[0][1] <= launches[0].start_ns() <= replay[0][2]
+    assert after["chain.captures"] == before["chain.captures"]
+    assert after["stagewise.ticks"] - before.get("stagewise.ticks", 0) == 2
+    ran = after["stagewise.topups"] - before.get("stagewise.topups", 0)
+    assert 0 <= ran <= 2
+    assert 0 <= after["stagewise.topup_lanes"] - before.get(
+        "stagewise.topup_lanes", 0) <= 33 * ran
