@@ -1182,7 +1182,8 @@ def shapes_vs_plain(tt, sk, device):
                      f"{err:.3e} > {bound_:.3e}")
         cfg = sk.ring_config(N, x, u, r, 8)
         print(f"kernel {entry.__name__} (N, x, u, r, lanes) = "
-              f"{(N, x, u, r, lanes)}, f64 ring of {cfg[4]} x {cfg[8]} "
+              f"{(N, x, u, r, lanes)}, {('block', 'warp')[cfg[9]]} body, "
+              f"f64 ring of {cfg[4]} x {cfg[8]} "
               f"stage tiles of {(sum(cfg[:3]) * 8) / 1e3:.1f} KB: "
               + "; ".join(line))
 
@@ -5578,11 +5579,25 @@ def main() -> int:
               f"{cfg['opts'].topup_iters} top-up)")
         configs.append(cfg)
 
-    # phase 5: the stagewise kernel against its plain version
+    # phase 5: the stagewise kernel against its plain version, and the
+    # body the shape's rule names taking every launch
+    from copra_tpu_torch import profiling
     probe = {}
     for cfg in configs:
+        sqp5 = cfg["fleet"]
+        shape5 = (sqp5.xdim, sqp5.udim, sqp5.nr_rows)
+        before = [profiling.counters().get(n, 0) for n in sk.LAUNCH_COUNTERS]
         (entry, e32, b32, e64, ms, plain_ms, ms64, bnd, chain,
          repack_ms, skip_ms) = stagewise_vs_plain(sk, cfg)
+        moved = [profiling.counters().get(n, 0) - b
+                 for n, b in zip(sk.LAUNCH_COUNTERS, before)]
+        named = 0 if sk.warp_body(*shape5) else 1
+        print(f"kernel {entry} ({cfg['name']}, (x, u, r) = {shape5}): "
+              f"launches by body {dict(zip(sk.LAUNCH_COUNTERS, moved))}, "
+              f"the rule names the {('warp', 'block')[named]} body")
+        if moved[named] == 0 or moved[1 - named] != 0:
+            fail(f"{cfg['name']}: launches {moved} not all on the "
+                 f"{('warp', 'block')[named]} body")
         probe[entry] = (e32, ms, plain_ms, bnd)
         print(f"kernel {entry} ({cfg['name']} plan, {cfg['opts'].max_iter} "
               f"iterations): float64 max_abs_err {e64:.3e} (tol {F64_TOL}),"

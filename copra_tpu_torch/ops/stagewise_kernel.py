@@ -15,9 +15,10 @@ entry points (``stagewise_kernel.py:418`` and ``:791``).  Both take one
 packed layout with the lane axis last: ``plan [N+1, C, B]``, ``warm [N+1,
 W, B]``, ``work [N+1, Kw, B]`` and ``x0 [x, B]`` (:class:`_Layout`), and
 both are served by one kernel, ``copra_tpu_torch/csrc/stagewise_tick.cu``
-(a block per lane, on lane-first copies that :func:`_launch` makes and
-undoes), for every shape inside :func:`check_fused_envelope`.  The
-reference's resident/streamed split was a VMEM budget; here
+(a lane a warp for the shapes :func:`warp_body` names, else a lane a
+block; on lane-first copies that :func:`_launch` makes and undoes), for
+every shape inside :func:`check_fused_envelope`.  The reference's
+resident/streamed split was a VMEM budget; here
 :func:`fused_mode` keeps only its component rule to choose the entry
 point.  Dropped as Mosaic layout machinery: ``_pad8``, ``LANES`` and the
 128-lane padding, the streamed mode's transposed forward copies, the
@@ -48,7 +49,12 @@ Tensor = torch.Tensor
 
 MAX_WIDTH = 128          # x + u + r, the reference's streamed-mode limit
 SMEM_LIMIT = 232448      # shared memory one H100 block may use (227 KB)
-MAX_STAGES = 8           # stage tiles in the kernel's ring, at most
+MAX_STAGES = 8           # stage tiles in the block body's ring, at most
+WARP_WIDTH = 24          # x + max(u, r) the warp body serves, at most
+WARP_MAX = 16            # x, u and r the warp body serves, at most
+WARP_GROUP = 16          # stage tiles a slot of the warp body's ring, most
+WARP_TILES = 32          # stage tiles in the warp body's ring, at most
+WARP_BAR_BYTES = 32      # the warp body's slot mbarriers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -314,7 +320,9 @@ _LAY_FIELDS = ("A", "B", "d", "K", "nF", "qb", "rb", "rhox", "rhou", "xlb",
 # (N, x, u, r) whose layout and launch plan _load checks against the C++
 _CHECKED = ((300, 3, 1, 2), (12, 3, 2, 2), (12, 3, 2, 0), (40, 6, 2, 4),
             (40, 12, 12, 12), (8, 32, 32, 32), (10, 64, 64, 0),
-            (3000, 100, 20, 8))
+            (3000, 100, 20, 8), (10, 2, 1, 0), (12, 12, 12, 4),
+            (12, 13, 12, 4), (12, 16, 8, 4), (12, 20, 12, 4),
+            (7, 31, 1, 1))
 
 
 def _load() -> ctypes.CDLL:
@@ -342,7 +350,7 @@ def _load() -> ctypes.CDLL:
             raise RuntimeError(f"csrc/stagewise_tick.cu disagrees with "
                                f"_Layout{(x, u, r)}: {tuple(out)}")
         for itemsize in (4, 8):
-            cfg = (ctypes.c_int * 9)()
+            cfg = (ctypes.c_int * 10)()
             lib.copra_stagewise_ring_config(N, x, u, r, int(itemsize == 8),
                                             cfg)
             want = ring_config(N, x, u, r, itemsize)
@@ -359,38 +367,63 @@ def _round_up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
+def warp_body(x: int, u: int, r: int) -> bool:
+    """Whether the kernel serves a shape with its warp body (mirrored by
+    ``warp_body`` in ``csrc/stagewise_tick.cu``): a lane a warp when the
+    state coordinates and the control or row coordinates fit in one warp,
+    ``x + max(u, r) <= WARP_WIDTH``, none of them above ``WARP_MAX``; the
+    block body otherwise.  (Wider shapes ran slower than the block body on
+    an H100: (20, 12, 4), whose loops unroll to 32 and spill, and (16, 16,
+    16) in float64.)"""
+    return x + max(u, r) <= WARP_WIDTH and max(x, u, r) <= WARP_MAX
+
+
 def ring_config(N: int, x: int, u: int, r: int, itemsize: int
-                ) -> Tuple[int, int, int, int, int, int, int, int, int]:
+                ) -> Tuple[int, int, int, int, int, int, int, int, int, int]:
     """The kernel's launch plan for a problem (mirrored by
     ``ring_config`` in ``csrc/stagewise_tick.cu``): ``(Cp, Wp, Kwp,
-    threads, stages, kk_resident, bytes, unroll, group)``.  Rows are
-    padded to 16 bytes; the state coordinates and the control and row
-    coordinates get warps of their own; up to ``MAX_STAGES`` stage tiles
-    fit beside the block's vectors and, where they fit, every stage's
-    ``kk``, as ``stages`` ring slots of ``group`` tiles each (4 tiles a
-    slot from 8 tiles on, 2 from 4, else 1; ``stages`` is 0 when not even
-    two tiles fit in ``SMEM_LIMIT``); the loops over x, u and r unroll to
-    4, 16 or 32, the smallest bound that covers the shape (0: rolled,
-    above 32)."""
+    threads, stages, kk_resident, bytes, unroll, group, warp)``.  Rows
+    are padded to 16 bytes.  A block serves a lane: the warp body
+    (``warp`` 1, :func:`warp_body`) with one warp, the block body (``warp``
+    0) with warps for the state coordinates beside warps for the control
+    and row coordinates and its vectors in shared memory.  The ring holds
+    as many stage tiles as fit (``WARP_TILES`` at most in the warp body,
+    beside its slots' mbarriers; ``MAX_STAGES`` in the block body) beside,
+    where they fit, every stage's ``kk``, as ``stages`` ring slots of
+    ``group`` tiles each (in the warp body the largest power of two up to
+    ``WARP_GROUP`` of which two slots fit; in the block body 4 from 8
+    tiles, 2 from 4, else 1; ``stages`` is 0 when not even two tiles
+    fit).  The loops over x, u and r unroll to the smallest bound that
+    covers the shape: 4, 8 or 16 in the warp body, 4, 16 or 32 in the
+    block body (0: rolled, above 32)."""
     lo = _Layout(x, u, r)
     per16 = 16 // itemsize
     Cp, Wp, Kwp = (_round_up(n, per16) for n in (lo.C, lo.W, lo.Kw))
-    threads = _round_up(x, 32) + _round_up(max(u, r), 32)
+    warp = warp_body(x, u, r)
+    threads = 32 if warp else _round_up(x, 32) + _round_up(max(u, r), 32)
     tile = (Cp + Wp + Kwp) * itemsize
-    vec = _round_up((2 * x + 2 * u + r) * itemsize, 16)
-    kk = N * u * itemsize
-    tiles = (SMEM_LIMIT - vec - kk) // tile
+    vec = 0 if warp else _round_up((2 * x + 2 * u + r) * itemsize, 16)
+    bars = WARP_BAR_BYTES if warp else 0
+    budget = SMEM_LIMIT - vec - bars
+    kk = _round_up(N * u * itemsize, 16) if warp else N * u * itemsize
+    tiles = (budget - kk) // tile
     kk_resident = tiles >= 2
     if not kk_resident:
-        tiles = (SMEM_LIMIT - vec) // tile
-    tiles = min(tiles, MAX_STAGES)
-    group = 4 if tiles >= 8 else 2 if tiles >= 4 else 1
+        tiles = budget // tile
+    tiles = min(tiles, WARP_TILES if warp else MAX_STAGES)
+    if warp:      # the largest group of which two slots fit
+        group = WARP_GROUP
+        while group > 1 and tiles < 2 * group:
+            group //= 2
+    else:
+        group = 4 if tiles >= 8 else 2 if tiles >= 4 else 1
     slots = tiles // group
-    nbytes = slots * group * tile + vec + (kk if kk_resident else 0)
+    nbytes = slots * group * tile + (kk if kk_resident else 0) + bars + vec
     w = max(x, u, r)
-    unroll = next((m for m in (4, 16, 32) if w <= m), 0)
+    unroll = next((m for m in ((4, 8, 16) if warp else (4, 16, 32))
+                   if w <= m), 0)
     return (Cp, Wp, Kwp, threads, slots if tiles >= 2 else 0,
-            int(kk_resident), nbytes, unroll, group)
+            int(kk_resident), nbytes, unroll, group, int(warp))
 
 
 def _lane_first(t: Tensor, rows_p: int) -> Tensor:
@@ -435,6 +468,11 @@ def _prepare(lib, dev) -> None:
             f"failed: CUDA error {rc} "
             f"({lib.copra_stagewise_error_string(rc).decode()})")
     _prepared.add(dev.index)
+
+
+# the host counters of the kernel's launches by body: each launch the host
+# issues (a captured one included; a graph's replays are not issued)
+LAUNCH_COUNTERS = ("stagewise.launches.warp", "stagewise.launches.block")
 
 
 def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
@@ -509,6 +547,8 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
         raise RuntimeError(
             f"stagewise tick kernel launch failed: CUDA error {rc} "
             f"({lib.copra_stagewise_error_string(rc).decode()})")
+    profiling.count(LAUNCH_COUNTERS[0] if warp_body(x, u, r)
+                    else LAUNCH_COUNTERS[1])
     return _lane_last(state, lo.W), _lane_last(state[:, :, Wp:], lo.Kw)
 
 
@@ -602,9 +642,9 @@ def fused_mode(N: int, x: int, u: int, r: int, dtype) -> str:
 def check_fused_envelope(N: int, x: int, u: int, r: int, dtype) -> None:
     """Raise ``ValueError`` with guidance unless the CUDA kernel can serve
     the problem: float32 or float64 data, ``x, u >= 1``, ``x + u + r <=
-    128`` (the reference's streamed-mode limit) and a ring of at least two
-    stage tiles beside the block's vectors within the 227 KB of shared
-    memory one block may use (:func:`ring_config`)."""
+    128`` (the reference's streamed-mode limit) and a lane's ring of at
+    least two stage tiles within the 227 KB of shared memory one block may
+    use (:func:`ring_config`)."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(
             f"fused stagewise kernel envelope: {dtype} data; the CUDA "

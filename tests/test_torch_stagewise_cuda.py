@@ -105,6 +105,76 @@ def test_cuda_tick_matches_plain_version(cuda, shape, dtype, tol):
         assert torch.equal(w0, p0) and torch.equal(k0, q0), entry.__name__
 
 
+def _launch_counts():
+    from copra_tpu_torch import profiling
+
+    c = profiling.counters()
+    return tuple(c.get(n, 0) for n in sk.LAUNCH_COUNTERS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape", [(12, 12, 12, 4, 37), (12, 13, 12, 4, 37),
+                                   (9, 12, 4, 12, 6), (9, 13, 4, 12, 6),
+                                   (12, 16, 8, 4, 37), (12, 16, 16, 4, 5),
+                                   (15, 5, 3, 0, 5), (10, 2, 1, 0, 9)],
+                         ids=["warp_24_u_gt_r", "block_25_u_gt_r",
+                              "warp_24_r_gt_u", "block_25_r_gt_u",
+                              "warp_x16", "block_32", "warp_no_rows",
+                              "warp_config1_shape"])
+def test_cuda_bodies_at_the_warp_envelope_edges(cuda, shape, dtype, tol):
+    """Each body at the edges of the warp envelope (x + max(u, r) = 24
+    with x, u, r <= 16 takes the warp body; 25 or 32 the block body; u > r,
+    r > u, r = 0; odd lane counts) against
+    the plain version within ``tol`` x max(1, max |plain|): 20 iterations
+    from a distinct non-zero warm tensor, ``n_iter = 0`` bit for bit, a run
+    that carries the centre from a given work tensor, and the top-up flag:
+    set, the state comes back bit for bit; clear, the run equals the one
+    without the flag.  Each launch adds one to the counter of the body the
+    shape's rule names."""
+    N, x, u, r, lanes = shape
+    warp = sk.warp_body(x, u, r)
+    assert warp == (x + max(u, r) <= 24 and max(x, u, r) <= 16)
+    assert sk.ring_config(N, x, u, r, dtype.itemsize)[9] == int(warp)
+    fp, x0, warm = _problem(N, x, u, r, lanes, seed=3 * N + x + r)
+    args = (fp.plan.to(dtype), x0.to(dtype), warm.to(dtype))
+    kw = dict(n_iter=20, N=N, x=x, u=u, r=r, sigma=1e-6, alpha=1.6)
+    entry = sk.fused_stagewise_tick
+    step = (1, 0) if warp else (0, 1)
+
+    def launched(n, **more):
+        before = _launch_counts()
+        out = entry(*args, **dict(kw, **more))
+        torch.cuda.synchronize()
+        got = _launch_counts()
+        assert got == tuple(b + n * s for b, s in zip(before, step))
+        return out
+
+    def held(got, want, what):
+        bound = tol * max(1.0, max(float(w.abs().max()) for w in want))
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape, what
+            assert float((g - w).abs().max()) <= bound, what
+
+    want = sk.stagewise_tick_plain(*args, **kw)
+    got = launched(1)
+    held(got, want, "20 iterations")
+    p0 = sk.stagewise_tick_plain(*args, **dict(kw, n_iter=0))
+    assert all(torch.equal(g, w) for g, w in zip(launched(1, n_iter=0), p0))
+    # carry: 5 more iterations from the plain run's state, its centre kept
+    args = (args[0], args[1], want[0])
+    more = dict(n_iter=5, work=want[1], carry=True)
+    held(launched(1, **more),
+         sk.stagewise_tick_plain(*args, **dict(kw, **more)), "carry")
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    kept = launched(1, **more, skip=one)
+    assert torch.equal(kept[0], want[0]) and torch.equal(kept[1], want[1])
+    ran = launched(1, **more, skip=0 * one)
+    again = launched(1, **more)
+    assert all(torch.equal(g, w) for g, w in zip(ran, again))
+
+
 @pytest.mark.cuda
 def test_cuda_tick_streams_kk_when_it_does_not_fit(cuda):
     """A long wide horizon whose kk rows do not fit beside the ring
@@ -116,6 +186,24 @@ def test_cuda_tick_streams_kk_when_it_does_not_fit(cuda):
     kw = dict(n_iter=2, N=N, x=x, u=u, r=r, sigma=1e-6, alpha=1.6)
     want = sk.stagewise_tick_plain(fp.plan, x0, warm, **kw)
     got = sk.fused_stagewise_tick_streamed(fp.plan, x0, warm, **kw)
+    torch.cuda.synchronize()
+    bound = 1e-9 * max(1.0, max(float(w.abs().max()) for w in want))
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_warp_body_streams_kk_when_it_does_not_fit(cuda):
+    """A shape of the warp body whose kk rows do not fit beside a lane's
+    ring (the forward sweep reads kk from the streamed tiles), float64
+    within 1e-9 of the plain version after 2 iterations."""
+    N, x, u, r, lanes = 2100, 2, 14, 0, 3
+    cfg = sk.ring_config(N, x, u, r, 8)
+    assert cfg[9] == 1 and cfg[5] == 0 and cfg[4] >= 2
+    fp, x0, warm = _problem(N, x, u, r, lanes, seed=6)
+    kw = dict(n_iter=2, N=N, x=x, u=u, r=r, sigma=1e-6, alpha=1.6)
+    want = sk.stagewise_tick_plain(fp.plan, x0, warm, **kw)
+    got = sk.fused_stagewise_tick(fp.plan, x0, warm, **kw)
     torch.cuda.synchronize()
     bound = 1e-9 * max(1.0, max(float(w.abs().max()) for w in want))
     for g, w in zip(got, want):

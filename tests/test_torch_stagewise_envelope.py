@@ -44,19 +44,22 @@ def test_envelope_raises_with_guidance(shape, dtype):
 
 
 @pytest.mark.parametrize("N,x,u,r,itemsize,want", [
-    (40, 12, 12, 12, 4, (1008, 72, 36, 64, 2, 1, 4)),     # config 6, f32
-    (40, 12, 12, 12, 8, (1008, 72, 36, 64, 2, 1, 4)),     # config 6, f64
-    (8, 32, 32, 32, 8, (6528, 192, 96, 64, 2, 1, 2)),     # near the limit
-    (10, 64, 64, 0, 4, (16960, 256, 192, 128, 3, 1, 1)),
-    (10, 64, 64, 0, 8, (16960, 256, 192, 128, 0, 0, 1)),  # does not fit
-    (3000, 100, 20, 8, 4, (15964, 256, 140, 160, 3, 0, 1)),  # kk streamed
-    (300, 3, 1, 2, 8, (50, 12, 6, 64, 2, 1, 4))],
+    (40, 12, 12, 12, 4, (1008, 72, 36, 32, 2, 1, 16, 1)),  # config 6, f32
+    (40, 12, 12, 12, 8, (1008, 72, 36, 32, 3, 1, 8, 1)),   # config 6, f64
+    (8, 32, 32, 32, 8, (6528, 192, 96, 64, 2, 1, 2, 0)),   # near the limit
+    (10, 64, 64, 0, 4, (16960, 256, 192, 128, 3, 1, 1, 0)),
+    (10, 64, 64, 0, 8, (16960, 256, 192, 128, 0, 0, 1, 0)),  # no fit
+    (3000, 100, 20, 8, 4, (15964, 256, 140, 160, 3, 0, 1, 0)),  # kk out
+    (300, 3, 1, 2, 8, (50, 12, 6, 32, 2, 1, 16, 1))],
     ids=["config6_f32", "config6_f64", "wide_f64", "x64_f32", "x64_f64",
          "kk_streamed", "config5_f64"])
 def test_ring_plan(N, x, u, r, itemsize, want):
-    """Rows padded to 16 bytes, warps for the state coordinates and warps
-    for the control and row coordinates, as many tiles (2..8) as fit in
-    227 KB beside the vectors and kk, in slots of 4, 2 or 1 tiles."""
+    """Rows padded to 16 bytes; a block a lane.  The warp body: one warp,
+    up to WARP_TILES tiles beside kk and the slots' mbarriers in 227 KB,
+    in 2 or 3 slots of the largest power-of-two group up to WARP_GROUP.
+    The block body: warps for the state coordinates and warps for the
+    control and row coordinates, as many tiles (2..8) as fit in 227 KB
+    beside the vectors and kk, in slots of 4, 2 or 1 tiles."""
     got = sk.ring_config(N, x, u, r, itemsize)
     assert got[:6] + got[8:] == want
     lo = sk._Layout(x, u, r)
@@ -65,6 +68,53 @@ def test_ring_plan(N, x, u, r, itemsize, want):
         assert got[6] <= sk.SMEM_LIMIT
         assert got[6] >= got[4] * got[8] * (got[0] + got[1] + got[2]) * \
             itemsize
+
+
+@pytest.mark.parametrize("N,x,u,r,warp", [
+    (300, 3, 1, 2, True), (40, 12, 12, 12, True), (10, 2, 1, 0, True),
+    (12, 2, 1, 0, True), (12, 12, 12, 4, True), (12, 13, 12, 4, False),
+    (12, 12, 4, 12, True), (12, 13, 4, 12, False), (12, 16, 8, 4, True),
+    (12, 16, 16, 4, False), (12, 17, 4, 4, False), (12, 20, 12, 4, False),
+    (7, 31, 1, 1, False), (8, 32, 32, 32, False)],
+    ids=["config5", "config6", "config1_polish", "fleet_serving",
+         "edge_24_u_gt_r", "edge_25_u_gt_r", "edge_24_r_gt_u",
+         "edge_25_r_gt_u", "x16", "edge_32", "x17", "x20", "x31", "wide"])
+def test_body_by_shape(N, x, u, r, warp):
+    """The warp body serves x + max(u, r) <= 24 with x, u, r <= 16, one
+    warp a lane, in both dtypes; the block body the rest, with warps for
+    the state coordinates beside warps for the control and row
+    coordinates.  The shape alone decides."""
+    assert sk.warp_body(x, u, r) is warp
+    for itemsize in (4, 8):
+        got = sk.ring_config(N, x, u, r, itemsize)
+        assert got[9] == int(warp)
+        assert got[3] == (32 if warp else
+                          _round32(x) + _round32(max(u, r)))
+        assert got[4] >= 2 and got[6] <= sk.SMEM_LIMIT
+
+
+def _round32(n):
+    return (n + 31) // 32 * 32
+
+
+def test_plain_route_counts_no_launch():
+    """On CPU tensors the wrappers run the plain version: neither body's
+    launch counter moves."""
+    from copra_tpu_torch import profiling
+
+    N, x, u, r, lanes = 6, 3, 1, 2, 2
+    lo = sk._Layout(x, u, r)
+    rng = np.random.default_rng(4)
+    plan = torch.tensor(rng.normal(size=(N + 1, lo.C, lanes)))
+    plan[:, lo.rhos:lo.rhos + r] = 1.0
+    before = [profiling.counters().get(n, 0) for n in sk.LAUNCH_COUNTERS]
+    sk.fused_stagewise_tick(plan, torch.zeros((x, lanes), dtype=plan.dtype),
+                            torch.zeros((N + 1, lo.W, lanes),
+                                        dtype=plan.dtype),
+                            n_iter=1, N=N, x=x, u=u, r=r, sigma=1e-6,
+                            alpha=1.6)
+    assert [profiling.counters().get(n, 0)
+            for n in sk.LAUNCH_COUNTERS] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -91,7 +141,7 @@ def test_lane_first_repack_round_trips_exactly(dtype, rows_of):
 
 
 @pytest.mark.parametrize("shape,unroll", [((3, 1, 2), 4), ((3, 2, 0), 4),
-                                          ((6, 2, 4), 16),
+                                          ((6, 2, 4), 8),
                                           ((12, 12, 12), 16),
                                           ((32, 32, 32), 32),
                                           ((33, 2, 2), 0)])
