@@ -315,7 +315,14 @@ Phases, one line or more each:
     lanes, the weak-scaling summary at 1.0 on one device, on the CPU the
     control and cluster lines and their summaries, the card's name and
     power limit on the card's lines, and no kernel launched (the step runs
-    eager ``solve_qp`` and four all-reduces); each run's seconds.
+    eager ``solve_qp`` and four all-reduces); each run's seconds;
+37. the Riccati gains kernel (``csrc/riccati_gains.cu``) at the served
+    quadruped's shape (``benchmark/configs/srb_quadruped_trot.json``: 128
+    lanes, N = 40, x = u = 12, r = 16, f32) on the chain that rebuilds
+    the SRB QP every tick: one launch into each layout eagerly and the
+    plan a served tick leaves, each against the plain f64 recursion
+    (2e-4 x max(1, max |column|)); one launch and one rebuild counted a
+    served tick; its ms by graph replay and eagerly beside its bound.
 
 Every served path runs with the launch counts set to 0 just before it and
 read just after, and fails if its kernel was never launched.  A chain's
@@ -5286,6 +5293,176 @@ BENCHALL_ROUTES = {
 BENCH_TIMEOUT_S = 900
 
 
+GAINS_SOURCE = "copra_tpu_torch/csrc/riccati_gains.cu"
+GAINS_REPLACES = ("none: new, the recursion of "
+                  "ops/stagewise_kernel.precompute_lqr_gains")
+# f32 kernel vs the f64 plain recursion, times max(1, max |column|)
+GAINS_TOL = 2e-4
+GAINS_TICKS = 5
+QUAD_CONFIG = os.path.join("benchmark", "configs", "srb_quadruped_trot.json")
+_GAINS_COLUMNS = ("A", "B", "d", "K", "nF", "qb", "rb")
+
+
+def _gains_err(sk, got_lf, inputs, x: int, u: int, r: int) -> float:
+    """The largest gap of the gains kernel's columns in ``got_lf`` (a
+    lane-first plan) from ``riccati_gains_plain`` of ``inputs`` in f64 on
+    the CPU, each column group over max(1, max |plain|)."""
+    import torch
+    from copra_tpu_torch.ops import gains_kernel as gk
+
+    lo = sk._Layout(x, u, r)
+    got = sk._lane_last(got_lf, lo.C).double().cpu()
+    want = got.clone()
+    gk.riccati_gains_plain(want, lane_first=False, x=x, u=u, r=r, **{
+        k: None if v is None else v.double().cpu() for k, v in
+        inputs.items()})
+    sizes = {"A": x * x, "B": x * u, "d": x, "K": u * x, "nF": u * u,
+             "qb": x, "rb": u}
+    err = 0.0
+    for name in _GAINS_COLUMNS:
+        off = getattr(lo, name)
+        w, g = want[:, off:off + sizes[name]], got[:, off:off + sizes[name]]
+        err = max(err, float((g - w).abs().max())
+                  / max(1.0, float(w.abs().max())))
+    if not torch.isfinite(got).all():
+        fail("the gains kernel wrote non-finite plan columns")
+    return err
+
+
+def gains_phase(tt, sk, dev, reset_counts, sm_hz):
+    """Phase 37: the Riccati gains kernel (``ops/gains_kernel.
+    riccati_gains_into_plan``, ``csrc/riccati_gains.cu``) at the served
+    quadruped's shape (``benchmark/configs/srb_quadruped_trot.json``: 128
+    robots, N = 40, x = u = 12, r = 16, f32), on the chain the benchmark
+    serves (``make_stagewise_multistep(..., problem=srb.linearise)``).
+    (a) Eagerly, at states turned from the build's: one launch into a copy
+    of the chain's lane-first plan (the layout the tick reads) and one
+    into its lane-last form, each held against ``riccati_gains_plain`` of
+    the same inputs in f64 within GAINS_TOL.  (b) The served tick: after
+    the capture, the counts zeroed, GAINS_TICKS ``serve`` calls replay one
+    launch each (``stagewise.rebuilds`` moves by one a call), and the plan
+    the last one leaves is held against the plain recursion of that
+    tick's data.  (c) The kernel's ms by graph replay and eagerly, beside
+    its bound (``benchmark/roofline/gains.py``'s count) and the plain
+    route's ms.  Returns the kernel's record."""
+    import torch
+    from copra_tpu_torch import profiling, srb
+    from copra_tpu_torch.ops import gains_kernel as gk
+    from copra_tpu_torch.qp import riccati
+    from benchmark.roofline.gains import work as gains_work
+
+    t_phase = time.perf_counter()
+    with open(QUAD_CONFIG) as f:
+        cfg = json.load(f)
+    robots, N = int(cfg["robots"]), int(cfg["horizon"])
+    x, u, r = (int(cfg["stage_dims"][k]) for k in ("x", "u", "r"))
+    rng = np.random.default_rng(37)
+    period = int(round(cfg["gait"]["period_s"] / cfg["dt"]))
+    model = srb.TrotModel.create(
+        rng.integers(0, period, robots).tolist(), N=N, dt=cfg["dt"],
+        mass=cfg["mass"], inertia=cfg["inertia"], w=cfg["state_weights"],
+        terminal=cfg["terminal_factor"], r=cfg["force_weight"],
+        height=cfg["height"], period_s=cfg["gait"]["period_s"],
+        duty=cfg["gait"]["duty"], gravity=cfg["gravity"],
+        dtype=torch.float32, device=dev)
+    box = dict(mu=cfg["mu"], fz_max=cfg["fz_max"], tilt=cfg["tilt"],
+               height_range=cfg["height_range"])
+    nominal = torch.tensor([cfg["x0_nominal"]], dtype=torch.float32,
+                           device=dev)
+    spread = torch.tensor(cfg["x0_spread"], dtype=torch.float32, device=dev)
+    x0 = nominal + spread * torch.as_tensor(
+        rng.standard_normal((robots, x)), dtype=torch.float32, device=dev)
+    cold = tt.SolverOptions(max_iter=int(cfg["cold_iterations"]),
+                            early_exit=False, polish=False,
+                            eps_abs=float(cfg["eps_abs"]),
+                            rho=float(cfg["rho"]))
+    warm = cold.replace(max_iter=int(cfg["warm_iterations"]),
+                        topup_iters=int(cfg["topup_iterations"]))
+    problem = lambda s: srb.linearise(model, s)
+    step = riccati.make_stagewise_multistep(
+        srb.trot_qp(model, x0, **box), warm, cold_options=cold,
+        backend="fused", scaling=riccati.stagewise_scales(srb.trot_qp(
+            srb.stance_model(model), nominal, **box)), problem=problem)
+    sqp_b, sqp_s, _, fp, ridged = step._data
+    if fp.plan is not None or fp.plan_lf is None:
+        fail("the rebuilt chain on the card keeps a lane-last plan")
+
+    def inputs_at(states):
+        data = riccati._scale_data(riccati._tick_data(problem, states, sqp_b),
+                                   step._scale)
+        return dict(A=data.A.contiguous(), B=data.B.contiguous(),
+                    d=data.d.contiguous(), Qx_r=ridged[0], Ru_r=ridged[1],
+                    S=ridged[2], qx=data.qx.contiguous(),
+                    ru=data.ru.contiguous())
+
+    # (a) eagerly, into both layouts
+    turned = x0.clone()
+    turned[:, 2] += 0.4
+    ins = inputs_at(turned)
+    lo = sk._Layout(x, u, r)
+    reset_counts()
+    plan_lf = fp.plan_lf.clone()
+    gk.riccati_gains_into_plan(plan_lf, lane_first=True, x=x, u=u, r=r,
+                               **ins)
+    plan_ll = sk._lane_last(fp.plan_lf, lo.C)
+    gk.riccati_gains_into_plan(plan_ll, lane_first=False, x=x, u=u, r=r,
+                               **ins)
+    torch.cuda.synchronize()
+    if gk.riccati_gains_into_plan.launches != 2:
+        fail(f"gains kernel: {gk.riccati_gains_into_plan.launches} launches "
+             f"counted for 2")
+    err_lf = _gains_err(sk, plan_lf, ins, x, u, r)
+    err_ll = _gains_err(sk, sk._lane_first(plan_ll, plan_lf.shape[-1]), ins,
+                        x, u, r)
+    # (b) the served tick: cold tick and capture, then GAINS_TICKS replays
+    step.serve(x0)
+    step.serve(x0)
+    torch.cuda.synchronize()
+    reset_counts()
+    before = profiling.counters().get("stagewise.rebuilds", 0)
+    g = torch.Generator(device=dev).manual_seed(37)
+    states = x0
+    for _ in range(GAINS_TICKS):
+        states = states + 0.05 * spread * torch.randn(
+            states.shape, generator=g, device=dev)
+        U = step.serve(states)
+    torch.cuda.synchronize()
+    n = gk.riccati_gains_into_plan.launches
+    rebuilds = profiling.counters().get("stagewise.rebuilds", 0) - before
+    if n != GAINS_TICKS or rebuilds != GAINS_TICKS:
+        fail(f"served quadruped: {n} gains launches and {rebuilds} rebuilds "
+             f"over {GAINS_TICKS} ticks")
+    if tuple(U.shape) != (robots, N * u) or not bool(torch.isfinite(U).all()):
+        fail(f"served quadruped: controls {tuple(U.shape)}, non-finite")
+    err_served = _gains_err(sk, fp.plan_lf, inputs_at(states), x, u, r)
+    err = max(err_lf, err_ll, err_served)
+    # (c) times and the bound
+    launch = lambda: gk.riccati_gains_into_plan(plan_lf, lane_first=True,
+                                                x=x, u=u, r=r, **ins)
+    ms = _graph_ms(launch, 20)
+    eager_ms = _cuda_ms(launch, 20)
+    plain_ms = _cuda_ms(lambda: gk.riccati_gains_plain(
+        plan_ll, lane_first=False, x=x, u=u, r=r, **ins), 3)
+    _, flops, nbytes, _ = gains_work(robots, N, x, u, r)
+    bnd = bound(flops, nbytes)
+    print(f"kernel riccati_gains_into_plan (quadruped, B = {robots}, N = {N},"
+          f" x = {x}, u = {u}, r = {r}, f32): max_err {err_lf:.3e} "
+          f"lane-first, {err_ll:.3e} lane-last, {err_served:.3e} in the "
+          f"served tick's plan (tol {GAINS_TOL} x max(1, max |column|)); "
+          f"{n} launches and {rebuilds} rebuilds over {GAINS_TICKS} served "
+          f"ticks; {ms:.4f} ms by graph replay, {eager_ms:.4f} ms eager, "
+          f"plain {plain_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}: "
+          f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.1f} MB), "
+          f"{100.0 * bnd[0] / ms:.2f}% of it; "
+          f"{ms * 1e-3 * sm_hz / N:.0f} cycles a stage at "
+          f"{sm_hz / 1e6:.0f} MHz; phase 37 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not err <= GAINS_TOL:
+        fail(f"the gains kernel disagrees with its plain version: {err:.3e}")
+    return kernel_record("riccati_gains_into_plan", GAINS_SOURCE,
+                         GAINS_REPLACES, n, err, ms, plain_ms, bnd)
+
+
 def _bench_script(script: str) -> tuple:
     """``python3 script`` at its default sizes as a child process, its
     artifact under ``smoke_out/``: ``(its JSON lines, seconds)``; a
@@ -5723,6 +5900,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     scaling_phase(kernels)
     print(f"phase 36: {time.perf_counter() - t_phase:.1f} s")
+    # phase 37: the Riccati gains kernel at the served quadruped's shape
+    kernels["riccati_gains_into_plan"] = gains_phase(tt, sk, dev,
+                                                     reset_counts, sm_hz)
     k7 = kernels["fused_admm_general"]
     k7["max_abs_err"] = max(k7["max_abs_err"], k7_err)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_wide)
@@ -5730,7 +5910,8 @@ def main() -> int:
     order = ("fused_admm_box_lanes", "fused_admm_box",
              "fused_admm_box_shared", "fused_stagewise_tick",
              "fused_stagewise_tick_streamed", "fused_admm_general_shared",
-             "fused_admm_general", "chol_batched")
+             "fused_admm_general", "chol_batched",
+             "riccati_gains_into_plan")
     print(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {

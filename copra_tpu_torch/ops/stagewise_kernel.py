@@ -492,14 +492,19 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
         raise ValueError(f"n_iter must be >= 0 and N >= 1, got {n_iter}, "
                          f"{N}")
     lo = _Layout(x, u, r)
-    nb = plan.shape[-1]
-    dev, dt = plan.device, plan.dtype
+    if plan is None and plan_lf is None:
+        raise ValueError("a launch needs the plan or its lane-first copy")
+    held = plan if plan is not None else plan_lf
+    nb = plan.shape[-1] if plan is not None else plan_lf.shape[0]
+    dev, dt = held.device, held.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"plan must be float32 or float64, got {dt}")
     check_fused_envelope(N, x, u, r, dt)
     for name, t, shape in (("plan", plan, (N + 1, lo.C, nb)),
                            ("x0", x0, (x, nb)),
                            ("warm", warm, (N + 1, lo.W, nb))):
+        if t is None:       # the plan, where only its lane-first copy is kept
+            continue
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, plan on {dev}")
         if t.dtype != dt:
@@ -509,7 +514,7 @@ def _launch(plan, x0, warm, *, n_iter, N, x, u, r, sigma, alpha,
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    Cp, Wp, Kwp = ring_config(N, x, u, r, plan.element_size())[:3]
+    Cp, Wp, Kwp = ring_config(N, x, u, r, held.element_size())[:3]
     if plan_lf is None:
         plan_lf = lane_first_plan(plan)
     elif (plan_lf.device != dev or plan_lf.dtype != dt
@@ -565,7 +570,8 @@ def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
     entry point: small per-stage dimensions, the N=300 ZMP class).
 
     ``plan [N+1, C, B]``, ``x0 [x, B]``, ``warm [N+1, W, B]``
-    (:class:`_Layout`, lane axis last).  Returns ``(warm', work)``;
+    (:class:`_Layout`, lane axis last; on CUDA ``plan`` may be None where
+    ``plan_lf`` is given).  Returns ``(warm', work)``;
     ``work [N+1, Kw, B]`` carries the final LQR iterates ``X``/``U``.
     CPU tensors run :func:`stagewise_tick_plain`; CUDA tensors launch
     ``csrc/stagewise_tick.cu`` (see :func:`_launch`), on ``plan_lf``
@@ -577,7 +583,7 @@ def fused_stagewise_tick(plan: Tensor, x0: Tensor, warm: Tensor, *,
     """
     kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha,
               work=work, skip=skip, carry=carry)
-    if plan.device.type == "cpu":
+    if x0.device.type == "cpu":
         return stagewise_tick_plain(plan, x0, warm, **kw)
     out = _launch(plan, x0, warm, **kw, plan_lf=plan_lf)
     fused_stagewise_tick.launches += 1
@@ -598,7 +604,7 @@ def fused_stagewise_tick_streamed(plan: Tensor, x0: Tensor, warm: Tensor,
     :func:`fused_stagewise_tick`, counted apart."""
     kw = dict(n_iter=n_iter, N=N, x=x, u=u, r=r, sigma=sigma, alpha=alpha,
               work=work, skip=skip, carry=carry)
-    if plan.device.type == "cpu":
+    if x0.device.type == "cpu":
         return stagewise_tick_plain(plan, x0, warm, **kw)
     out = _launch(plan, x0, warm, **kw, plan_lf=plan_lf)
     fused_stagewise_tick_streamed.launches += 1
@@ -620,7 +626,7 @@ class FusedStagewisePlan:
     ``options.polish_iters`` on float32 data the f64 polish's plan
     (:class:`~copra_tpu_torch.ops.polish.PolishPlan`)."""
 
-    plan: Tensor
+    plan: Optional[Tensor]    # None on CUDA where only plan_lf is kept
     mode: str                 # "resident" | "streamed"
     sqp: "object"             # batched StagewiseQP
     gains_raw: Optional[LQRGains]

@@ -34,6 +34,7 @@ one graph per chain length).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -108,6 +109,71 @@ def _lead(sqp: StagewiseQP) -> StagewiseQP:
     return StagewiseQP(**{f.name: (None if getattr(sqp, f.name) is None
                                    else getattr(sqp, f.name).unsqueeze(0))
                           for f in dataclasses.fields(StagewiseQP)})
+
+
+class TickData(NamedTuple):
+    """The data of a batched problem that a tick rebuilds from its initial
+    states, in original units: ``A [B, N, x, x]``, ``B [B, N, x, u]``,
+    ``d [B, N, x]`` and the linear costs ``qx [B, N+1, x]``, ``ru [B, N,
+    u]``.  What the ``problem`` callable of :func:`make_stagewise_multistep`
+    (and :func:`make_stagewise_step`) returns for the tick's ``x0 [B, x]``;
+    the quadratic costs, boxes and rows stay as built."""
+
+    A: Tensor
+    B: Tensor
+    d: Tensor
+    qx: Tensor
+    ru: Tensor
+
+
+# the device counter of the rebuilds: a tick that rebuilt its problem from
+# its x0 adds one, inside a captured graph too
+REBUILD_COUNTERS = ("stagewise.rebuilds",)
+
+
+def _tick_data(problem, x0: Tensor, sqp: StagewiseQP) -> TickData:
+    """``problem(x0)``, checked against the batched problem it replaces
+    (shapes and dtypes; a host check, no sync)."""
+    data = TickData(*problem(x0))
+    for name, t in zip(TickData._fields, data):
+        held = getattr(sqp, name)
+        if tuple(t.shape) != tuple(held.shape) or t.dtype != held.dtype:
+            raise DimensionError(
+                f"the problem callable gave {name} {t.dtype} "
+                f"{tuple(t.shape)}; the tick's problem holds {held.dtype} "
+                f"{tuple(held.shape)}")
+    return data
+
+
+def _scale_data(data: TickData, scale) -> TickData:
+    """The fields a tick rebuilds, equilibrated by ``scale = (Dx, Du)`` as
+    :func:`scale_stagewise` does the whole problem (``None``: as they
+    are)."""
+    if scale is None:
+        return data
+    Dx, Du = scale
+    Dxi = 1.0 / Dx
+    return TickData(A=Dxi[:, None] * data.A * Dx[None, :],
+                    B=Dxi[:, None] * data.B * Du[None, :], d=data.d * Dxi,
+                    qx=data.qx * Dx, ru=data.ru * Du)
+
+
+def _refuse_stale_plan(problem, options: "SolverOptions", rows: bool,
+                       backend: str) -> None:
+    """A fused tick that rebuilds its problem every tick refreshes the
+    plan's data-dependent columns; it does not rebuild the f64 polish's
+    plan, nor the unridged gains that reseed a warm tick without rows."""
+    if problem is None or backend != "fused":
+        return
+    if getattr(options, "polish_iters", 0) > 0:
+        raise ValueError(
+            "a per-tick problem on the fused backend does not rebuild the "
+            "f64 polish's plan: set polish_iters=0, or use backend='xla'")
+    if not rows and options.seed != "zero":
+        raise ValueError(
+            "a per-tick problem without rows on the fused backend would "
+            "reseed each warm tick from gains it does not rebuild: set "
+            "seed='zero', or use backend='xla'")
 
 
 def _ein(eq: str, *ts) -> Tensor:
@@ -1027,13 +1093,12 @@ def scale_stagewise(sqp: StagewiseQP, Dx: Tensor, Du: Tensor
     values are invariant, so ``clo``/``chi`` are unchanged."""
     Dxi, Dui = 1.0 / Dx, 1.0 / Du
     r = sqp.nr_rows
+    data = _scale_data(TickData(sqp.A, sqp.B, sqp.d, sqp.qx, sqp.ru),
+                       (Dx, Du))
     return dataclasses.replace(
-        sqp,
-        A=Dxi[:, None] * sqp.A * Dx[None, :],
-        B=Dxi[:, None] * sqp.B * Du[None, :],
-        d=sqp.d * Dxi, x0=sqp.x0 * Dxi,
-        Qx=Dx[:, None] * sqp.Qx * Dx[None, :], qx=sqp.qx * Dx,
-        Ru=Du[:, None] * sqp.Ru * Du[None, :], ru=sqp.ru * Du,
+        sqp, **data._asdict(), x0=sqp.x0 * Dxi,
+        Qx=Dx[:, None] * sqp.Qx * Dx[None, :],
+        Ru=Du[:, None] * sqp.Ru * Du[None, :],
         xlb=sqp.xlb * Dxi, xub=sqp.xub * Dxi,
         ulb=sqp.ulb * Dui, uub=sqp.uub * Dui,
         Cx=(sqp.Cx * Dx[None, :]) if r else sqp.Cx,
@@ -1138,7 +1203,8 @@ class StagewiseTick:
                  backend: str, options: SolverOptions,
                  cold_options: SolverOptions,
                  swap_options: SolverOptions, scale,
-                 parallel_scan: bool = False):
+                 parallel_scan: bool = False, problem=None):
+        self._problem = problem
         self._batched = batched
         self._backend = backend
         self._parallel_scan = parallel_scan
@@ -1198,10 +1264,22 @@ class StagewiseTick:
         return _xla_tick_exec(self._sqp, self._scale, x0, warm, opts,
                               self._parallel_scan)
 
+    def _rebuild(self, x0: Tensor) -> None:
+        """The problem rebuilt eagerly at ``x0 [B, x]`` (original units):
+        the callable's data, scaled, and every plan built again, in the
+        facade's own tensors."""
+        data = _scale_data(_tick_data(self._problem, x0, self._sqp),
+                           self._scale)
+        self._set_problem(dataclasses.replace(self._sqp, **data._asdict()))
+        profiling.device_counter(REBUILD_COUNTERS, x0.device).add_(1)
+
     @profiling.traced("copra.stagewise_tick")
     def __call__(self, x0, warm=None):
         if not self._batched:
             x0 = x0[None]
+        if self._problem is not None:
+            with profiling.trace_span("copra.stagewise.rebuild"):
+                self._rebuild(x0)
         if warm is None:
             out = self._run(self._cold_options, x0, None)
         elif self._swap_pending:
@@ -1251,8 +1329,8 @@ def make_stagewise_step(sqp: StagewiseQP,
                         parallel_scan: bool = False,
                         backend: str = "auto",
                         scaling="none",
-                        swap_options: Optional[SolverOptions] = None
-                        ) -> StagewiseTick:
+                        swap_options: Optional[SolverOptions] = None,
+                        problem=None) -> StagewiseTick:
     """Serving facade for the stagewise engine (the config-5/6 pattern).
 
     Returns ``tick(x0, warm) -> (X, U, info, warm)`` over a batched
@@ -1276,6 +1354,12 @@ def make_stagewise_step(sqp: StagewiseQP,
     is equilibrated once at build; ticks take and return original units,
     but the warm tuple and the reported residuals and statuses live in the
     scaled space.
+
+    ``problem(x0 [B, x]) -> TickData`` (optional): the problem's
+    data-dependent fields at each tick's initial states, in original units
+    (a QP linearised again at every MPC step); each call rebuilds the
+    problem from it before it solves (eagerly: the scale stays the one of
+    the build, every plan is built again).
     """
     if backend == "fused" and parallel_scan:
         raise ValueError(
@@ -1315,7 +1399,7 @@ def make_stagewise_step(sqp: StagewiseQP,
     if swap_options is None:
         swap_options = cold_options
     return StagewiseTick(sqp_b, batched, backend, options, cold_options,
-                         swap_options, scale, parallel_scan)
+                         swap_options, scale, parallel_scan, problem)
 
 
 def _curvature_spread(sqp: StagewiseQP) -> float:
@@ -1562,6 +1646,7 @@ def make_stagewise_server(sqp: StagewiseQP, *,
 
 # the eager route of a captured stagewise chain, which differentiates
 _PLAIN_TICKS = "make_stagewise_step(..., backend='xla') tick by tick"
+_NO_SPAN = contextlib.nullcontext()
 
 
 class StagewiseMultistep:
@@ -1572,7 +1657,8 @@ class StagewiseMultistep:
 
     def __init__(self, sqp_b: StagewiseQP, scale, batched: bool,
                  backend: str, parallel_scan: bool, options: SolverOptions,
-                 plant, cold_tick: StagewiseTick):
+                 plant, cold_tick: StagewiseTick, problem=None):
+        self._problem = problem
         self._batched = batched
         self._backend = backend
         self._parallel_scan = parallel_scan
@@ -1588,6 +1674,7 @@ class StagewiseMultistep:
         self._data = self._build(sqp_b)
         self._graph = backend == "fused" and self._device.type == "cuda"
         self._chains = {}
+        self._served = None
 
     @property
     def backend(self) -> str:
@@ -1600,8 +1687,12 @@ class StagewiseMultistep:
         return self._chains
 
     def _build(self, sqp_b: StagewiseQP):
-        """``(sqp_b, sqp_s, plant data, fused plan or None)``, every tensor
-        with storage of its own (so that it can take a replan in place)."""
+        """``(sqp_b, sqp_s, plant data, fused plan or None, the ridged
+        stage Hessians or None)``, every tensor with storage of its own (so
+        that it can take a replan, or a tick's rebuild, in place).  The
+        ridged Hessians ``(Qx_r, Ru_r, S)`` are kept where a fused tick
+        refactors its gains from each tick's data; such a plan on the card
+        keeps only its lane-first copy ``plan_lf`` (``plan`` is None)."""
         from .._graph import tree_map
 
         sqp_b = tree_map(
@@ -1610,16 +1701,54 @@ class StagewiseMultistep:
                  else scale_stagewise(sqp_b, *self._scale))
         pargs = tuple(t[:, 0].contiguous() for t in
                       (sqp_b.A, sqp_b.B, sqp_b.d))
-        fp = None
+        fp = ridged = None
         if self._backend == "fused":
             from ..ops.stagewise_kernel import build_fused_plan
             fp = build_fused_plan(sqp_s, self._options)
             sqp_s = fp.sqp
-        return sqp_b, sqp_s, pargs, fp
+            if self._problem is not None:
+                ridged = tuple(
+                    None if t is None else t.contiguous() for t in
+                    _penalized(sqp_s, self._options, fp.rho_x,
+                               fp.rho_u)[:3])
+                if fp.plan_lf is not None:
+                    # the rebuild refreshes only the copy the kernel reads:
+                    # the lane-last plan would go stale, so it is dropped
+                    fp = dataclasses.replace(fp, plan=None)
+        return sqp_b, sqp_s, pargs, fp, ridged
+
+    def _rebuild(self, xk: Tensor) -> None:
+        """The tick's problem rebuilt at ``xk`` (original units) in the
+        chain's own tensors: the callable's data, scaled by the build's
+        equilibration, into the problem, and on the fused backend the
+        plan's data-dependent columns and gains refactored on the device
+        (:func:`~copra_tpu_torch.ops.gains_kernel.riccati_gains_into_plan`,
+        one launch, into the copy of the plan the tick kernel reads).
+        Nothing here syncs the host, so a captured chain holds it."""
+        sqp_b, sqp_s, pargs, fp, ridged = self._data
+        data = _tick_data(self._problem, xk, sqp_b)
+        for t, v in zip(pargs, (data.A, data.B, data.d)):
+            t.copy_(v[:, 0])
+        for name, v in zip(TickData._fields,
+                           _scale_data(data, self._scale)):
+            getattr(sqp_s, name).copy_(v)
+        if fp is not None:
+            from ..ops.gains_kernel import riccati_gains_into_plan
+            lane_first = fp.plan_lf is not None
+            riccati_gains_into_plan(
+                fp.plan_lf if lane_first else fp.plan, lane_first=lane_first,
+                x=sqp_s.xdim, u=sqp_s.udim, r=sqp_s.nr_rows, A=sqp_s.A,
+                B=sqp_s.B, d=sqp_s.d, Qx_r=ridged[0], Ru_r=ridged[1],
+                S=ridged[2], qx=sqp_s.qx, ru=sqp_s.ru)
+        profiling.device_counter(REBUILD_COUNTERS, xk.device).add_(1)
 
     def _tick(self, xk: Tensor, warm):
-        """One warm tick at the original-units state ``xk``."""
-        _, sqp_s, _, fp = self._data
+        """One warm tick at the original-units state ``xk`` (its problem
+        rebuilt there first, where a callable gives it)."""
+        if self._problem is not None:
+            with profiling.trace_span("copra.stagewise.rebuild"):
+                self._rebuild(xk)
+        _, sqp_s, _, fp, _ = self._data
         if fp is not None:
             return _fused_tick_exec(fp, sqp_s, self._scale, xk, warm,
                                     self._options)
@@ -1664,9 +1793,11 @@ class StagewiseMultistep:
                 fn = lambda xs_, *w: self._chain(n_ticks, xs_[0], w, xs_)
             else:
                 fn = lambda x0_, *w: self._chain(n_ticks, x0_, w)
-            chain = self._chains[key] = CapturedChain(
-                fn, (xs if exogenous else x0,) + warm,
-                "make_stagewise_multistep", _PLAIN_TICKS)
+            with (profiling.trace_span("copra.stagewise.rebuild")
+                  if self._problem is not None else _NO_SPAN):
+                chain = self._chains[key] = CapturedChain(
+                    fn, (xs if exogenous else x0,) + warm,
+                    "make_stagewise_multistep", _PLAIN_TICKS)
         out = chain(xs if exogenous else x0, *warm)
         with profiling.trace_span("copra.chain.copy_out"):
             return tree_map(torch.clone, out)
@@ -1701,6 +1832,60 @@ class StagewiseMultistep:
                 "make_stagewise_multistep instead.")
         copy_into(self._data, self._build(sqp_new))
         self._cold_tick.replan(sqp_new)
+
+    @profiling.traced("copra.stagewise_serve")
+    def serve(self, x0) -> Tensor:
+        """One tick of an exogenous state stream, the warm state held by the
+        chain: the controls ``U [B, N * u]`` (``[N * u]`` unbatched) of the
+        tick at ``x0 [B, x]`` in original units, the call's own tensor.
+        Each call is one warm tick from the state the last one left (the
+        first from the leading cold tick's at ``x0``): the controls of
+        ``step_many(None, 1, warm, x0_seq=x0[None])`` with the warm tuple
+        carried, without handing the warm state, the states or the
+        statuses out.  On a CUDA device with the fused backend the tick is
+        one CUDA graph, captured on the first warm call, that also writes
+        its new warm state over its input: a call copies ``x0`` in,
+        replays and clones ``U``."""
+        kd = dict(dtype=self._dtype, device=self._device)
+        x0 = torch.as_tensor(x0).to(**kd)
+        if not self._batched:
+            x0 = x0[None]
+        if self._served is None:
+            # the leading cold tick: a warm-up solve at the first state
+            self._served = tuple(w.clone() for w in self._cold_tick(x0)[3])
+        if not self._graph:
+            _, U, _, warm = self._tick(x0, self._served)
+            self._served = tuple(warm)
+            U = U.reshape(U.shape[0], -1)
+        else:
+            U = self._serve_chain(x0)
+        return U if self._batched else U[0]
+
+    def _serve_chain(self, x0: Tensor) -> Tensor:
+        from .._graph import CapturedChain
+
+        chain = self._chains.get("serve")
+        if chain is None:
+            def fn(x, *w):
+                _, U, _, new = self._tick(x, w)
+                for dst, src in zip(w, new):
+                    dst.copy_(src)
+                return U.reshape(U.shape[0], -1)
+
+            held = self._served
+            with (profiling.trace_span("copra.stagewise.rebuild")
+                  if self._problem is not None else _NO_SPAN):
+                chain = self._chains["serve"] = CapturedChain(
+                    fn, (x0,) + held, "make_stagewise_multistep(...).serve",
+                    _PLAIN_TICKS)
+            # the run before the capture ticked the chain's warm state: the
+            # first replay starts from the cold tick's again
+            for dst, src in zip(chain.inputs[1:], held):
+                dst.copy_(src)
+            self._served = chain.inputs[1:]
+        U = chain(x0)
+        with profiling.trace_span("copra.chain.copy_out"):
+            return U.clone()
 
     @profiling.traced("copra.stagewise_multistep")
     def __call__(self, x0, n_ticks: int, warm=None, x0_seq=None):
@@ -1756,7 +1941,8 @@ def make_stagewise_multistep(sqp: StagewiseQP,
                              parallel_scan: bool = False,
                              backend: str = "auto",
                              plant=None,
-                             scaling="none") -> StagewiseMultistep:
+                             scaling="none",
+                             problem=None) -> StagewiseMultistep:
     """Multi-tick serving for the stagewise engine: ``n_ticks`` receding-
     horizon ticks per call, with the plant rollout (or an exogenous state
     stream) between them.
@@ -1794,6 +1980,21 @@ def make_stagewise_multistep(sqp: StagewiseQP,
     copies the new data into the captured tensors, so it needs no new
     capture.  The returned tensors are the call's own.  With
     ``backend="xla"`` or on CPU tensors the same ticks run eagerly.
+
+    ``problem(x0 [B, x]) -> TickData`` (optional) makes each tick's problem
+    a function of its initial states (a QP linearised again at every MPC
+    step): ``A``, ``B``, ``d``, ``qx`` and ``ru`` in original units, which
+    the tick scales by the build's fixed equilibration and writes into the
+    chain's tensors; on the fused backend it then refactors the Riccati
+    gains into the plan's data-dependent columns on the device (one launch
+    of ``csrc/riccati_gains.cu``) and runs K4 or K5 and the top-up as
+    before.  On the card that is part of the tick's one CUDA graph (the
+    callable must be torch ops without a host sync); the penalties, row
+    normalisation and boxes stay as built.  The leading cold tick rebuilds
+    eagerly.  Each rebuild adds one to the device counter
+    ``stagewise.rebuilds``.  On the fused backend a callable needs
+    ``polish_iters=0``, and rows or ``seed='zero'``.  Without a callable
+    the chain is as it was.
     """
     if backend == "fused" and parallel_scan:
         raise ValueError(
@@ -1813,6 +2014,9 @@ def make_stagewise_multistep(sqp: StagewiseQP,
                                     parallel_scan=parallel_scan,
                                     backend=backend,
                                     scaling="none" if scale is None
-                                    else scale)
+                                    else scale, problem=problem)
+    _refuse_stale_plan(problem, options, sqp_b.Cx is not None,
+                       cold_tick.backend)
     return StagewiseMultistep(sqp_b, scale, batched, cold_tick.backend,
-                              parallel_scan, options, plant, cold_tick)
+                              parallel_scan, options, plant, cold_tick,
+                              problem)

@@ -166,14 +166,15 @@ def test_every_kernel_wrapper_registers_its_count():
     ``ops.counts.COUNTED`` (what a captured chain and a smoke run read and
     reset), each with its count."""
     from copra_tpu_torch.ops import (admm_kernel, cholesky_kernel, counts,
-                                     stagewise_kernel)
+                                     gains_kernel, stagewise_kernel)
 
     wrappers = {admm_kernel.fused_admm_box_lanes, admm_kernel.fused_admm_box,
                 admm_kernel.fused_admm_box_shared,
                 admm_kernel.fused_admm_general_shared,
                 admm_kernel.fused_admm_general, cholesky_kernel.chol_batched,
                 stagewise_kernel.fused_stagewise_tick,
-                stagewise_kernel.fused_stagewise_tick_streamed}
+                stagewise_kernel.fused_stagewise_tick_streamed,
+                gains_kernel.riccati_gains_into_plan}
     assert set(counts.COUNTED) == wrappers
     assert len(counts.COUNTED) == len(wrappers)
     admm_kernel.fused_admm_box.launches = 3
